@@ -1,0 +1,584 @@
+"""FrequencyDomainChannelizer — the top-level system, on PyTorch.
+
+Port of ``fdc_tpu.models.channelizer`` (reference:
+python/FrequencyDomainChannelizer.py:42-316): one overlap-save FFT
+front-end feeding throughput channels, power-activated burst channels
+and activity-detection segments. Construction solves the static
+geometry and registers the constant tables as buffers on ``device``; the
+step ``(carry, samples, t0) -> (carry, outputs)`` processes
+``batch_blocks`` FFT blocks at a time through the three hand-written
+kernels, and the host loop (``process`` / ``flush``) buffers samples
+into batches and runs the emission layer.
+
+The carry is a plain dict of tensors with the JAX package's keys
+(``hist``, ``prev_spec``, ``powact``, ``seg{i}``) and the step outputs
+follow its contract (``throughput_buckets``, ``powact{...}``,
+``seg{i}{...}``) with extraction outputs in the float32 [..., 2] pair
+layout, so the two implementations compare key by key and a carry moves
+between them (``fdc_tpu_torch.convert``).
+
+Configurations that need parts not yet ported raise NotImplementedError
+at construction (see ``_check_slice``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from fdc_tpu_torch.config import ChannelizerConfig, VerboseMode
+from fdc_tpu_torch.models.power_activation import (
+    _FLOAT_MIN as _PA_FLOAT_MIN,
+    PowerActivationBank,
+)
+from fdc_tpu_torch.models.segment_detection import (
+    SegmentDetector,
+    scan_slots_multi,
+)
+from fdc_tpu_torch.models.throughput import ThroughputChannelizer
+from fdc_tpu_torch.ops import extract_fused
+from fdc_tpu_torch.ops.extract import (
+    extract_bucket_measured,
+    extract_bucket_phased,
+)
+from fdc_tpu_torch.ops.fft import forward_spectrum
+from fdc_tpu_torch.ops.framing import frame_blocks
+from fdc_tpu_torch.runtime.emission import (
+    PowerActivationEmitter,
+    SegmentDetectionEmitter,
+)
+from fdc_tpu_torch.utils.events import ChannelEvent, FileSink
+from fdc_tpu_torch.utils.logging import make_logger
+
+__all__ = [
+    "FrequencyDomainChannelizer",
+    "ProcessResult",
+    "finalize_rounds_bound",
+]
+
+
+def finalize_rounds_bound(segments, batch_blocks: int) -> int:
+    """Upper bound on the end-of-stream silence batches a finalize pass
+    may need: burst channels fall on the first silent block; detection
+    slots age out after deactivation_delay + 1 silent blocks (plus one
+    block for the emit itself)."""
+    max_delay = max((sd.deactivation_delay for sd in segments), default=0)
+    return -(-(max_delay + 2) // batch_blocks) + 1
+
+
+@dataclass
+class ProcessResult:
+    """Host-side result of processing a chunk of samples."""
+
+    # per configured throughput channel: contiguous complex64 output stream
+    throughput: List[np.ndarray] = field(default_factory=list)
+    # burst / detection events in emission order (PDU equivalents)
+    events: List[ChannelEvent] = field(default_factory=list)
+    # [B_total, N] normalized spectra if debug=True (reference debug port,
+    # python/FrequencyDomainChannelizer.py:152-158,314-315)
+    debug_spectrum: Optional[np.ndarray] = None
+    # [B_total, n_cells] decimated power per detection segment
+    segment_power: List[np.ndarray] = field(default_factory=list)
+    blocks_processed: int = 0
+
+
+def _check_slice(cfg: ChannelizerConfig) -> None:
+    """Refuse configurations that need parts of fdc_tpu not ported yet."""
+    missing = []
+    if cfg.segment_splits:
+        missing.append("segment_splits (split reconciliation)")
+    if cfg.extract_width_split:
+        missing.append("extract_width_split (two-tier slot extraction)")
+    if cfg.native_emission is True:
+        missing.append("native_emission=True (the C++ emitters)")
+    if not cfg.use_mxu_fft:
+        missing.append("use_mxu_fft=False (FFT-lowered subband transforms)")
+    if (cfg.activity_controlled_channels
+            and not cfg.activity_detection_segments):
+        missing.append("a burst bank without detection segments (the "
+                       "standalone powact kernel)")
+    if missing:
+        raise NotImplementedError(
+            "fdc_tpu_torch does not port yet: " + "; ".join(missing)
+        )
+
+
+def _pairs_to_complex(a: np.ndarray) -> np.ndarray:
+    """float32 [..., 2] pairs -> complex64 [...]."""
+    return np.ascontiguousarray(a, np.float32).view(np.complex64)[..., 0]
+
+
+def _to_host(tree):
+    """Nested dict of tensors -> the same dict of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    return tree.cpu().numpy()
+
+
+class FrequencyDomainChannelizer(nn.Module):
+    """Parameter-compatible top-level channelizer on one torch device.
+
+    ``device`` is required (no implicit default): ``"cuda"`` runs the
+    hand-written kernels, ``"cpu"`` their plain PyTorch versions. Use
+    ``process(samples)`` / ``flush()`` for the buffered streaming API, or
+    drive ``_device_step`` directly. Constructing one sets
+    ``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.backends.cudnn.allow_tf32`` to False process-wide: TF32 would
+    cost ~40 dB of extraction SNR (the reference keeps fp32).
+    """
+
+    def __init__(self, config: Optional[ChannelizerConfig] = None, *,
+                 device, **kwargs):
+        super().__init__()
+        if config is None:
+            config = ChannelizerConfig(**kwargs)
+        elif kwargs:
+            config = config.replace(**kwargs)
+        _check_slice(config)
+        self.config = cfg = config
+        self.device = torch.device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+        self.log = make_logger(cfg.verbose, "gr-FDC.FreqDomChan.log")
+
+        # -- sub-models (static geometry solved here) -------------------------
+        self.throughput: Optional[ThroughputChannelizer] = None
+        tp_chans = cfg.fdc_throughput_channels()
+        if tp_chans:
+            self.throughput = ThroughputChannelizer(
+                cfg.blocksize, cfg.relinvovl, tp_chans, cfg.windowtype
+            )
+        self.power_bank: Optional[PowerActivationBank] = None
+        pa_chans = cfg.fdc_activity_controlled_channels()
+        if pa_chans:
+            self.power_bank = PowerActivationBank(
+                cfg.blocksize, cfg.relinvovl, pa_chans,
+                cfg.act_contr_threshold,
+            )
+        if self.throughput and self.power_bank:
+            shared = ({b.width for b in self.throughput.buckets}
+                      & {b.width for b in self.power_bank.buckets})
+            if shared:
+                raise NotImplementedError(
+                    f"throughput and burst channels of equal width "
+                    f"{sorted(shared)}: their fused bucket needs the "
+                    f"fused_extract_static kernel, not ported yet"
+                )
+        self.segments = nn.ModuleList(
+            SegmentDetector(
+                i, cfg.blocksize, cfg.relinvovl, a, b,
+                cfg.act_det_threshold, cfg.fdc_minchandist(),
+                cfg.minchanflankpuffer if cfg.minchanflankpuffer >= 0
+                else 0.2,
+                cfg.act_det_deactivation_delay
+                if cfg.act_det_deactivation_delay >= 0 else 0,
+                cfg.max_slots, cfg.max_candidates, cfg.max_extract_width,
+                extract_budget=cfg.extract_budget,
+            )
+            for i, (a, b) in enumerate(cfg.fdc_activity_detection_segments())
+        )
+
+        # -- per-component lifecycle loggers (reference:
+        # lib/SegmentDetection_impl.cc:49-57,474-481,
+        # lib/PowerActivationChannel_impl.cc:52-60,245-253) -----------------
+        verbose_on = cfg.verbose != VerboseMode.NOLOG
+        seg_logs = []
+        for i, sd in enumerate(self.segments):
+            lg = None
+            if verbose_on:
+                lg = make_logger(cfg.verbose, f"gr-FDC.ActDetChan.ID_{i}.log")
+                g = sd.geometry
+                # constructor banner (reference: lib/SegmentDetection_impl.cc:109-113)
+                lg(f"Threshold               {sd.thresh:g}")
+                lg(f"decimation factor       {g.decimation}")
+                lg(f"start                   {g.start}")
+                lg(f"stop                    {g.stop}")
+                lg(f"width                   {g.width}")
+            seg_logs.append(lg)
+        pa_logs = None
+        if self.power_bank and verbose_on:
+            pa_logs = []
+            for c, g in enumerate(self.power_bank.geometry):
+                lg = make_logger(cfg.verbose, f"gr-FDC.PowActChan.{c}.log")
+                # constructor banner (reference:
+                # lib/PowerActivationChannel_impl.cc:112-123)
+                s0 = "############################\n\n"
+                lg(
+                    s0 + f"# gr-FDC.PowActChan.{c}\n\n" + s0
+                    + f"# extract_start: {g.extract_start}\n"
+                    + f"# extract_stop: {g.extract_stop}\n"
+                    + f"# extract_width: {g.extract_width}\n"
+                    + f"# measure_start: {g.measure_start}\n"
+                    + f"# measure_stop: {g.measure_stop}\n\n"
+                    + "# equivalent cfreq: "
+                    + f"{(g.extract_start + g.extract_width / 2) / cfg.blocksize:.6f}\n"
+                    + f"# equivalent bw: {g.extract_width / cfg.blocksize:.6f}\n"
+                )
+                pa_logs.append(lg)
+
+        # -- host emission layer (the Python emitters) ------------------------
+        sink = FileSink(cfg.outputpath, self.log) if cfg.fileoutput else None
+        self.power_emitter = (
+            PowerActivationEmitter(self.power_bank, cfg.pow_act_maxblocks,
+                                   sink, cfg.msgoutput, channel_logs=pa_logs)
+            if self.power_bank else None
+        )
+        self.segment_emitters = [
+            SegmentDetectionEmitter(sd, cfg.act_det_maxblocks, sink,
+                                    cfg.msgoutput, log=seg_logs[i])
+            for i, sd in enumerate(self.segments)
+        ]
+
+        # -- fused power measures ---------------------------------------------
+        # One [N, Cm] 0/1 mask matrix holding every detection consumer's
+        # measure columns (burst bands + segment decimation cells), zero
+        # padded to a multiple of 128 columns. Kernel A computes
+        # |X|^2 @ masks alongside the first throughput bucket's extraction;
+        # its accumulation order differs from the separate reduces at
+        # ~1e-7 rel, far inside the dB-scale detection thresholds.
+        self.register_buffer("measure_masks", None)
+        self._measure_cols = {}
+        if (self.power_bank or len(self.segments)) and self.throughput:
+            cols = []
+            off = 0
+            if self.power_bank:
+                cols.append(self.power_bank.measure_masks.numpy())
+                self._measure_cols["powact"] = (
+                    0, self.power_bank.num_channels
+                )
+                off = self.power_bank.num_channels
+            for i, sd in enumerate(self.segments):
+                g = sd.geometry
+                m = np.zeros((cfg.blocksize, g.n_cells), np.float32)
+                for c in range(g.n_cells):
+                    m[g.start + c * g.decimation:
+                      g.start + (c + 1) * g.decimation, c] = 1.0
+                cols.append(m)
+                self._measure_cols[f"seg{i}"] = (off, off + g.n_cells)
+                off += g.n_cells
+            mm = np.concatenate(cols, axis=1)
+            pad = (-mm.shape[1]) % 128
+            if pad:
+                mm = np.pad(mm, ((0, 0), (0, pad)))
+            self.register_buffer("measure_masks", torch.from_numpy(mm))
+
+        # -- streaming state ---------------------------------------------------
+        self._carry = None
+        self._t0 = 0  # global index of next block
+        self._pending = np.zeros(0, np.complex64)  # host sample buffer
+        self.to(self.device)
+
+        if cfg.verbose:
+            self.log("# fdc_tpu_torch FrequencyDomainChannelizer")
+            self.log(f"Blocksize     = {cfg.blocksize}")
+            self.log(f"Relinvovl     = {cfg.relinvovl}")
+            self.log(f"Ovllen        = {cfg.ovllen}")
+            self.log(f"BatchBlocks   = {cfg.batch_blocks}")
+            self.log(f"Throughput channels:         {cfg.throughput_channels}")
+            self.log(f"Activity control channels:   {cfg.activity_controlled_channels}")
+            self.log(f"Activity detection segments: {cfg.activity_detection_segments}")
+
+    # -- device functions -------------------------------------------------------
+
+    def _device_init(self):
+        cfg = self.config
+        dev = self.device
+        carry = {
+            "hist": torch.zeros(cfg.ovllen, dtype=torch.complex64,
+                                device=dev),
+            "prev_spec": torch.zeros(cfg.blocksize, dtype=torch.complex64,
+                                     device=dev),
+        }
+        if self.power_bank:
+            carry["powact"] = self.power_bank.init_state(dev)
+        for i, sd in enumerate(self.segments):
+            carry[f"seg{i}"] = sd.init_state(dev)
+        return carry
+
+    def _device_step(self, carry, x: torch.Tensor, t0: int):
+        """One step over B = len(x) // inplen blocks.
+
+        x: [B*inplen] complex64 samples on the module's device; t0: global
+        index of the first block. Returns (new_carry, outputs)."""
+        cfg = self.config
+        blocks, hist = frame_blocks(x, carry["hist"], cfg.blocksize)
+        spec = forward_spectrum(blocks)  # [B, N]
+        new_carry = dict(carry)
+        new_carry["hist"] = hist
+        spec_ext = torch.cat([new_carry["prev_spec"][None], spec])
+        new_carry["prev_spec"] = spec[-1].clone()
+
+        out, pa_powers, pa_ext, seg_powers, seg_packed = (
+            self._extract_static(spec, spec_ext, t0)
+        )
+        scans = self._scan_detections(new_carry, pa_powers, seg_packed)
+        self._finish_detections(out, scans, spec_ext, pa_ext, seg_powers)
+        if cfg.debug:
+            out["debug_spectrum"] = torch.view_as_real(spec)
+        return new_carry, out
+
+    def _extract_static(self, spec, spec_ext, t0):
+        """Throughput / burst extraction and the detection power measures
+        and candidate packs — everything that does not depend on
+        detection state. Returns (out, pa_powers, pa_ext, seg_powers,
+        seg_packed)."""
+        cfg = self.config
+        r = cfg.relinvovl
+        out = {}
+        powers_fused = None
+        if self.throughput:
+            # t0 is always a whole number of batches, so with B % R == 0
+            # the per-row phase pattern is static (extract_bucket_phased)
+            fold_phase = cfg.batch_blocks % r == 0
+            mats = []
+            for bucket in self.throughput.buckets:
+                starts, folded = self.throughput.tables(bucket)
+                if not fold_phase:
+                    y = extract_fused.extract_shared(spec, starts, folded)
+                    mats.append(self.throughput.finish_bucket(bucket, y, t0))
+                    continue
+                if self.measure_masks is not None and powers_fused is None:
+                    # the detection measures ride the first bucket's launch
+                    y, powers_fused = extract_bucket_measured(
+                        spec, starts, folded, r, self.measure_masks
+                    )
+                else:
+                    y = extract_bucket_phased(spec, starts, folded, r)
+                mats.append(self.throughput.finish_bucket(
+                    bucket, y, t0, prephased=True
+                ))
+            out["throughput_buckets"] = mats
+        sq = None
+        if (self.power_bank or len(self.segments)) and powers_fused is None:
+            sf = torch.view_as_real(spec)
+            sq = sf[..., 0] * sf[..., 0] + sf[..., 1] * sf[..., 1]
+        pa_powers = None
+        pa_ext = None
+        if self.power_bank:
+            pa = self.power_bank
+            if powers_fused is not None:
+                lo, hi = self._measure_cols["powact"]
+                pa_powers = torch.clamp(powers_fused[:, lo:hi],
+                                        min=float(_PA_FLOAT_MIN))
+            else:
+                pa_powers = pa.measure(sq)
+            # burst extraction is flag-independent: every channel, every
+            # row of spec_ext (the flags select what the host emits)
+            pa_ext = {}
+            for bucket in pa.buckets:
+                starts, folded = pa.tables(bucket)
+                pa_ext[bucket.width] = extract_fused.extract_shared(
+                    spec_ext, starts, folded)
+        seg_powers = []
+        for i, sd in enumerate(self.segments):
+            if powers_fused is not None:
+                lo, hi = self._measure_cols[f"seg{i}"]
+                seg_powers.append(powers_fused[:, lo:hi])
+            else:
+                seg_powers.append(sd.measure(sq))
+        seg_packed = [
+            sd._packed_candidates(p) for sd, p in zip(self.segments, seg_powers)
+        ]
+        return out, pa_powers, pa_ext, seg_powers, seg_packed
+
+    def _scan_detections(self, carry_io, pa_powers, seg_packed):
+        """The sequential detection logic — slot lifecycles and the burst
+        hysteresis in one kernel C launch — and the extraction plans.
+        Updates ``carry_io`` in place; returns the flags/plans."""
+        scans = {"segs": []}
+        if not len(self.segments):
+            return scans
+        states = [carry_io[f"seg{i}"] for i in range(len(self.segments))]
+        if self.power_bank:
+            seg_scans, (pa_state, flags) = scan_slots_multi(
+                self.segments, states, seg_packed,
+                powact=(self.power_bank, pa_powers, carry_io["powact"]),
+            )
+            carry_io["powact"] = pa_state
+            scans["powact"] = flags
+        else:
+            seg_scans = scan_slots_multi(self.segments, states, seg_packed)
+        for i, sd in enumerate(self.segments):
+            seg_state, flags = seg_scans[i]
+            carry_io[f"seg{i}"] = seg_state
+            scans["segs"].append(
+                (seg_state, self._seg_scan_outputs(sd, seg_state, flags))
+            )
+        return scans
+
+    @staticmethod
+    def _seg_scan_outputs(sd, seg_state, flags):
+        """One segment's scan-stage outputs: flags in host layout [S, B],
+        the slot_meta snapshot and the compaction plan."""
+        got, processed, emit_now, phase_used = flags
+        slot_ids, overflow = sd.extract_plan(got, processed)
+        return {
+            "activated": got.T,
+            "processed": processed.T,
+            "emit": emit_now.T,
+            "phase_used": phase_used.T,
+            "slot_meta": {
+                "ext_start": seg_state["ext_start"],
+                "wlog2": seg_state["wlog2"],
+                "order": seg_state["order"],
+            },
+            "slot_ids": slot_ids,
+            "ext_overflow": overflow,
+        }
+
+    def _finish_detections(self, out, scans, spec_ext, pa_ext, seg_powers):
+        """Assemble the detection outputs, extracting the planned slots."""
+        if self.power_bank:
+            rise, fall, processed, phase_used = scans["powact"]
+            out["powact"] = {
+                "rise": rise,
+                "fall": fall,
+                "processed": processed,
+                "phase_used": phase_used,
+                "extract": pa_ext,
+            }
+        for i, ((seg_state, so), sd, power) in enumerate(
+            zip(scans["segs"], self.segments, seg_powers)
+        ):
+            so = dict(so)
+            so["extract"] = sd.extract_slots(spec_ext, seg_state,
+                                             so["slot_ids"])
+            so["power"] = power
+            out[f"seg{i}"] = so
+
+    # -- host streaming API ------------------------------------------------------
+
+    @property
+    def batch_samples(self) -> int:
+        return self.config.batch_blocks * self.config.inplen
+
+    def _new_result(self) -> ProcessResult:
+        return ProcessResult(
+            throughput=[
+                np.zeros(0, np.complex64)
+                for _ in range(
+                    self.throughput.num_channels if self.throughput else 0
+                )
+            ],
+            segment_power=[
+                np.zeros((0, sd.geometry.n_cells), np.float32)
+                for sd in self.segments
+            ],
+        )
+
+    def reset(self):
+        self._carry = None
+        self._t0 = 0
+        self._pending = np.zeros(0, np.complex64)
+
+    def process(self, samples: np.ndarray) -> ProcessResult:
+        """Buffered streaming entry point: any-length complex64 sample
+        arrays; whole batches are processed, the remainder is buffered."""
+        cfg = self.config
+        if self._carry is None:
+            self._carry = self._device_init()
+        x = np.concatenate([self._pending, np.asarray(samples, np.complex64)])
+        bs = self.batch_samples
+        n_batches = len(x) // bs
+        self._pending = x[n_batches * bs:]
+        result = self._new_result()
+        dbg = []
+        for i in range(n_batches):
+            chunk = torch.from_numpy(x[i * bs:(i + 1) * bs]).to(self.device)
+            self._carry, out = self._device_step(self._carry, chunk, self._t0)
+            self._consume_outputs(out, result, dbg)
+            self._t0 += cfg.batch_blocks
+            result.blocks_processed += cfg.batch_blocks
+        if dbg:
+            result.debug_spectrum = np.concatenate(dbg)
+        return result
+
+    def flush(self, finalize: bool = True) -> ProcessResult:
+        """End-of-stream: zero-pad the buffered remainder to one batch, run
+        it, trim the stream outputs to the blocks holding real samples,
+        and (``finalize``) feed whole batches of silence until every burst
+        channel and detection slot has deactivated — the emitted event set
+        then does not depend on the capture length mod batch_blocks."""
+        cfg = self.config
+        n_pend = len(self._pending)
+        if n_pend == 0:
+            res = self._new_result()
+            if cfg.debug:
+                res.debug_spectrum = np.zeros((0, cfg.blocksize),
+                                              np.complex64)
+        else:
+            n_real = -(-n_pend // cfg.inplen)  # blocks with real samples
+            res = self.process(
+                np.zeros(self.batch_samples - n_pend, np.complex64)
+            )
+            if self.throughput:
+                for bucket in self.throughput.buckets:
+                    for chan in bucket.channel_ids:
+                        res.throughput[chan] = res.throughput[chan][
+                            : n_real * bucket.out_len
+                        ]
+            if res.debug_spectrum is not None:
+                res.debug_spectrum = res.debug_spectrum[:n_real]
+            res.segment_power = [p[:n_real] for p in res.segment_power]
+            res.blocks_processed = n_real
+        if finalize:
+            for _ in range(self._finalize_rounds()):
+                if not self._open_bursts():
+                    break
+                res.events.extend(self._feed_silence().events)
+        return res
+
+    def _feed_silence(self) -> ProcessResult:
+        """One whole batch of end-of-stream silence."""
+        return self.process(np.zeros(self.batch_samples, np.complex64))
+
+    def _finalize_rounds(self) -> int:
+        if not (self.power_bank or len(self.segments)):
+            return 0
+        return finalize_rounds_bound(self.segments, self.config.batch_blocks)
+
+    def _open_bursts(self) -> bool:
+        """Any burst channel or detection slot still active on device."""
+        if self._carry is None:
+            return False
+        c = self._carry
+        if self.power_bank and bool(c["powact"]["active"].any()):
+            return True
+        return any(
+            bool(c[f"seg{i}"]["active"].any())
+            for i in range(len(self.segments))
+        )
+
+    def _consume_outputs(self, out, result: ProcessResult, dbg: list):
+        t0 = self._t0
+        if self.throughput:
+            for bucket, mat in zip(self.throughput.buckets,
+                                   out["throughput_buckets"]):
+                m = _pairs_to_complex(mat.cpu().numpy())  # [C, B*out_len]
+                for row, chan in enumerate(bucket.channel_ids):
+                    result.throughput[chan] = np.concatenate(
+                        [result.throughput[chan], m[row]]
+                    )
+        if self.power_bank:
+            po = _to_host(out["powact"])
+            po["extract"] = {
+                w: _pairs_to_complex(v) for w, v in po["extract"].items()
+            }
+            result.events.extend(self.power_emitter.process_step(po, t0))
+        for i in range(len(self.segments)):
+            so = _to_host(out[f"seg{i}"])
+            so["extract"] = _pairs_to_complex(so["extract"])
+            result.events.extend(
+                self.segment_emitters[i].process_step(so, so["slot_meta"],
+                                                      t0)
+            )
+            result.segment_power[i] = np.concatenate(
+                [result.segment_power[i], so["power"]]
+            )
+        if self.config.debug and "debug_spectrum" in out:
+            dbg.append(_pairs_to_complex(out["debug_spectrum"].cpu().numpy()))

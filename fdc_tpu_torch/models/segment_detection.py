@@ -1,0 +1,229 @@
+"""Dynamic carrier detection + channelization over one frequency segment.
+
+Port of ``fdc_tpu.models.segment_detection`` (reference:
+lib/SegmentDetection_impl.cc). Per batch: the decimated power spectrum
+of all blocks, candidate detection for all blocks at once (kernel B does
+the greedy acceptance), the slot-table lifecycle over the blocks
+(kernel C, ``ops.lifecycle``), a compaction plan of the slots that need
+extraction, and one batched variable-width extraction of the planned
+slots over the [B+1]-row spectrum batch (row 0 = previous batch's last
+block, reference: lib/SegmentDetection_impl.cc:431-435).
+
+Slots are allocated monotonically within a step and freed on device at
+step end after the host emitters consumed the retired ones; slot
+exhaustion drops new channels with a counter (reference:
+lib/SegmentDetection_impl.cc:298-308).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from fdc_tpu_torch.config import SegmentGeometry, solve_segment
+from fdc_tpu_torch.ops.detect import (
+    candidate_geometry,
+    cell_power,
+    detect_candidates_batch,
+)
+from fdc_tpu_torch.ops.extract import extract_dynamic
+from fdc_tpu_torch.ops.fft import _rr_idft_matrix, interleave_rows
+from fdc_tpu_torch.ops import lifecycle
+from fdc_tpu_torch.ops.windows import flank_window_bank
+
+__all__ = ["SegmentDetector", "scan_slots_multi"]
+
+
+class SegmentDetector(nn.Module):
+    """One detection segment with an S-slot dynamic channel table.
+
+    Buffers: ``window_table`` [log2(w_cap)+1, w_cap] (phase-0 flank window
+    of every power-of-2 width, zero-padded) and ``idft`` [2 w_cap, 2 w_cap]
+    (the slot transform, rows interleaved)."""
+
+    def __init__(
+        self,
+        segment_id: int,
+        blocksize: int,
+        relinvovl: int,
+        seg_start: float,
+        seg_stop: float,
+        thresh_db: float,
+        minchandist: float,
+        window_flank_puffer: float,
+        channel_deactivation_delay: int = 1,
+        max_slots: int = 32,
+        max_candidates: int = 0,
+        max_extract_width: int = 0,
+        extract_budget: int = 0,
+    ):
+        super().__init__()
+        if thresh_db < 0.0:
+            raise ValueError("Threshold is dB and must be >= 0")
+        if window_flank_puffer < 0.0:
+            raise ValueError("window_flank_puffer must be >= 0")
+        self.segment_id = segment_id
+        self.blocksize = blocksize
+        self.relinvovl = relinvovl
+        # linear threshold (reference: lib/SegmentDetection_impl.cc:75-77)
+        self.thresh = float(10.0 ** (thresh_db / 10.0))
+        self.flank_puffer = float(window_flank_puffer)
+        self.deactivation_delay = int(channel_deactivation_delay)
+        self.max_slots = int(max_slots)
+        self.max_candidates = int(max_candidates)  # 0 = exact (all edges)
+        # device-side output compaction: rows shipped per step
+        self.extract_budget = min(
+            int(extract_budget) or self.max_slots, self.max_slots
+        )
+        self.w_cap = int(max_extract_width) or blocksize
+        if self.w_cap & (self.w_cap - 1):
+            raise ValueError("max_extract_width must be a power of 2")
+        self.w_cap = min(self.w_cap, blocksize)
+        self.w_cap_log2 = int(math.log2(self.w_cap))
+        self.geometry: SegmentGeometry = solve_segment(
+            blocksize, seg_start, seg_stop, minchandist
+        )
+        # K for edge detection (0 = exact: every ratio position) vs K of
+        # the candidate pack: accepted intervals are disjoint and at least
+        # two cells wide (thresh >= 1), so at most (n_cells - 1) // 2
+        # survive per block and truncating the compacted pack is exact
+        self.k_detect = self.max_candidates or (self.geometry.n_cells - 1)
+        if self.thresh < 1.0:
+            raise ValueError("the k_pack bound requires thresh >= 1")
+        self.k_pack = min(
+            self.k_detect, max(1, (self.geometry.n_cells - 1) // 2)
+        )
+
+        # phase-0 window of every power-of-2 width <= w_cap, zero-padded
+        # (reference: lib/SegmentDetection_impl.cc:551-583)
+        table = np.zeros((self.w_cap_log2 + 1, self.w_cap), np.float32)
+        for s in range(self.w_cap_log2 + 1):
+            w = 1 << s
+            table[s, :w] = flank_window_bank(
+                w, relinvovl, self.flank_puffer
+            )[0].real
+        self.register_buffer("window_table", torch.from_numpy(table))
+        self.register_buffer("idft", torch.from_numpy(interleave_rows(
+            _rr_idft_matrix(self.w_cap, 0, False, 1.0, pairs=True)
+        )))
+
+    # -- state ----------------------------------------------------------------
+
+    def init_state(self, device):
+        s = self.max_slots
+        state = {
+            key: torch.zeros(s, dtype=torch.int32, device=device)
+            for key in lifecycle.SLOT_KEYS
+        }
+        state["active"] = torch.zeros(s, dtype=torch.bool, device=device)
+        state["tomb"] = torch.zeros(s, dtype=torch.bool, device=device)
+        state["alloc_counter"] = torch.zeros((), dtype=torch.int32,
+                                             device=device)
+        state["dropped"] = torch.zeros((), dtype=torch.int32, device=device)
+        return state
+
+    # -- device step ----------------------------------------------------------
+
+    def measure(self, sq: torch.Tensor) -> torch.Tensor:
+        """[B, N] |X|^2 -> [B, n_cells] decimated segment power
+        (reference: lib/SegmentDetection_impl.cc:178-193)."""
+        g = self.geometry
+        return cell_power(sq, g.start, g.n_cells, g.decimation)
+
+    def _packed_candidates(self, power: torch.Tensor) -> torch.Tensor:
+        """[B, n_cells] powers -> [B, 7K] candidate pack (K = k_pack):
+        groups (start bin, end bin, valid, wlog2, ext_start, ext_start % R,
+        too_big), accepted candidates compacted to the front in acceptance
+        order, empty columns 0 before the bin conversion."""
+        g = self.geometry
+        cand_s, cand_e, cand_v = detect_candidates_batch(
+            power, self.thresh, self.k_detect
+        )  # [B, K_detect], cell coords
+        b = power.shape[0]
+        kp = self.k_pack
+        rank = torch.cumsum(cand_v.to(torch.int32), 1, dtype=torch.int32) - 1
+        # column kp is a discard slot (never hit: at most kp candidates
+        # survive the acceptance, see __init__)
+        dest = torch.where(cand_v & (rank < kp), rank, kp).long()
+        taken = torch.zeros((3, b, kp + 1), dtype=torch.int32,
+                            device=power.device)
+        for i, v in enumerate((cand_s, cand_e, cand_v.to(torch.int32))):
+            taken[i].scatter_(1, dest, v)
+        cand_s = taken[0, :, :kp] * g.decimation + g.start  # -> bin coords
+        cand_e = taken[1, :, :kp] * g.decimation + g.start
+        valid = taken[2, :, :kp]
+        wl2, es, too_big = candidate_geometry(
+            cand_s, cand_e, puffer=self.flank_puffer, w_cap=self.w_cap,
+            w_cap_log2=self.w_cap_log2, n=self.blocksize,
+        )
+        return torch.cat(
+            [cand_s, cand_e, valid, wl2, es, es % self.relinvovl,
+             too_big.to(torch.int32)],
+            dim=1,
+        )
+
+    def extract_plan(self, got, processed):
+        """Output compaction plan from [B, S] flags: (slot_ids [E] int32,
+        overflow int32) — slots activated or processed this step first, in
+        slot-index order, then idle slots as filler; overflow counts needy
+        slots beyond the budget E."""
+        s = self.max_slots
+        e = self.extract_budget
+        dev = got.device
+        if e >= s:
+            return (torch.arange(s, dtype=torch.int32, device=dev),
+                    torch.zeros((), dtype=torch.int32, device=dev))
+        need = torch.any(got | processed, dim=0)  # [S]
+        n_need = need.sum(dtype=torch.int32)
+        rank_needy = torch.cumsum(need.to(torch.int32), 0) - 1
+        rank_idle = n_need + torch.cumsum((~need).to(torch.int32), 0) - 1
+        pos = torch.where(need, rank_needy, rank_idle)  # [S] permutation
+        ids = torch.empty(s, dtype=torch.int32, device=dev)
+        ids[pos.long()] = torch.arange(s, dtype=torch.int32, device=dev)
+        overflow = torch.clamp(n_need - e, min=0).to(torch.int32)
+        return ids[:e], overflow
+
+    def extract_slots(self, spec_ext: torch.Tensor, state, slot_ids):
+        """Variable-width extraction of the slots named by ``slot_ids``
+        over every row of ``spec_ext``: [E, rows, w_cap, 2] phase-0
+        interpolated pairs (see ``ops.extract.extract_dynamic``)."""
+        ids = slot_ids.long()
+        ext_start = state["ext_start"][ids]
+        windows = self.window_table[state["wlog2"][ids].long()]
+        return extract_dynamic(spec_ext, ext_start, windows, self.idft)
+
+
+def scan_slots_multi(segments, states, packed_list, powact=None):
+    """All segments' lifecycle scans (and the burst bank's hysteresis
+    chain, ``powact=(bank, pa_powers, pa_state)``) in one kernel C
+    launch. Returns a list of (new_state, (got, processed, emit,
+    phase_used)) with flags [B, S], and with ``powact`` the pair
+    (that list, (pa_new_state, pa_flags [C, B]))."""
+    kw = {}
+    if powact is not None:
+        bank, pa_powers, pa_state = powact
+        kw = dict(
+            powact={
+                "powers": pa_powers,
+                "lastpower": pa_state["lastpower"],
+                "active": pa_state["active"],
+                "phase": pa_state["phase"],
+                "delta": bank.delta,
+            },
+            pa_r=bank.relinvovl,
+            pa_thresh=bank.thresh,
+        )
+    out = lifecycle.slot_lifecycle_multi(
+        tuple(packed_list), tuple(states),
+        n_cands=tuple(sd.k_pack for sd in segments),
+        rs=tuple(sd.relinvovl for sd in segments),
+        delays=tuple(sd.deactivation_delay for sd in segments),
+        **kw,
+    )
+    if powact is None:
+        return list(out)
+    seg_results, pa_result = out
+    return list(seg_results), pa_result

@@ -47,6 +47,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: opt-in lane (fuzz tails, soak, multi-process)"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (fdc_tpu_torch kernels)"
+    )
 
 
 def pytest_collection_modifyitems(config, items):
