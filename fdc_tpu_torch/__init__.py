@@ -5,15 +5,19 @@ hand-written CUDA C++ kernels for NVIDIA Hopper (``sm_90a``). It imports
 neither JAX nor ``fdc_tpu``; the JAX package is the reference the tests
 hold it against.
 
-Covered: the flagship step — overlap-save framing, FFT front-end,
-throughput channels, the power-activated burst bank beside detection
-segments, exact-mode segment detection with compacted slot extraction —
-and the host ``process`` / ``flush`` loop with the Python emitters.
-Kernels (``csrc/``, built with nvcc on first use on a CUDA device):
+Covered: overlap-save framing, the FFT front-end, throughput channels,
+power-activated burst banks with or without detection segments, the
+fused throughput + burst buckets, segment detection with compacted slot
+extraction, and the host ``process`` / ``flush`` loop with the Python
+emitters — the flagship, the upstream example and BASELINE config 3
+(``flagship.py``). Kernels (``csrc/``, built with nvcc on first use on a
+CUDA device):
 
 - A ``extract_shared.cu``: shared-matrix bucket extraction + power measures;
 - B ``greedy_accept.cu``: greedy candidate acceptance;
-- C ``lifecycle.cu``: slot lifecycles + the burst hysteresis chain.
+- C ``lifecycle.cu``: slot lifecycles + the burst hysteresis chain;
+- D ``powact.cu``: the burst hysteresis chain of a bank without segments;
+- E ``extract_static.cu``: bucket extraction with a matrix per channel.
 """
 
 from fdc_tpu_torch.config import ChannelizerConfig

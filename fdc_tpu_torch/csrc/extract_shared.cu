@@ -26,7 +26,8 @@
 // gathers rows at the static starts straight from device memory — the
 // gathered [C, R, 2l] operand never exists in device memory.
 //
-// What the design does about it: 64x64 output tiles, BK=16 k-steps staged
+// What the design does about it (the GEMM is tile_gemm.cuh, shared with
+// extract_static.cu): 64x64 output tiles, BK=16 k-steps staged
 // in shared memory, a 4x4 micro-tile per thread (256 threads). The
 // measures' long contraction (N = 4096) over few output tiles is split
 // along k into partial sums that a second pass adds in a fixed order
@@ -37,107 +38,15 @@
 
 #include <cuda_runtime.h>
 
+#include "tile_gemm.cuh"
+
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int NT = 256;
-
-// MODE 0: A[g, kk] = spec_f[(r * N + starts[c]) * 2 + kk], g = c * R + r
-// MODE 1: A[r, kk] = |spec[r, kk]|^2
-template <int MODE>
-__global__ void __launch_bounds__(NT) tile_gemm(
-    const float* __restrict__ spec, int R, int N,
-    const int* __restrict__ starts,
-    const float* __restrict__ B, int K, int Nout, int M, int k_chunk,
-    float* __restrict__ out) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int kbeg = blockIdx.z * k_chunk;
-  const int kend = min(K, kbeg + k_chunk);
-
-  // the 4 A rows this thread stages (rows ty + 16 i of the tile)
-  const float* arow[4];
-  bool aok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int g = m0 + ty + 16 * i;
-    aok[i] = g < M;
-    if (MODE == 0) {
-      const int c = aok[i] ? g / R : 0;
-      const int r = aok[i] ? g - c * R : 0;
-      arow[i] = spec + (static_cast<size_t>(r) * N + starts[c]) * 2;
-    } else {
-      arow[i] = spec + static_cast<size_t>(aok[i] ? g : 0) * N * 2;
-    }
-  }
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    const int kk = k0 + tx;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float v = 0.0f;
-      if (aok[i] && kk < kend) {
-        if (MODE == 0) {
-          v = arow[i][kk];
-        } else {
-          const float2 z = reinterpret_cast<const float2*>(arow[i])[kk];
-          v = z.x * z.x + z.y * z.y;
-        }
-      }
-      As[tx][ty + 16 * i] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * NT;
-      const int row = idx / BN;
-      const int col = idx % BN;
-      const int kb = k0 + row;
-      const int n = n0 + col;
-      Bs[row][col] =
-          (kb < kend && n < Nout) ? B[static_cast<size_t>(kb) * Nout + n]
-                                  : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* o = out + static_cast<size_t>(blockIdx.z) * M * Nout;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int g = m0 + ty + 16 * i;
-    if (g >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < Nout) o[static_cast<size_t>(g) * Nout + n] = acc[i][j];
-    }
-  }
-}
+using fdc_gemm::BK;
+using fdc_gemm::BM;
+using fdc_gemm::BN;
+using fdc_gemm::NT;
+using fdc_gemm::tile_gemm;
 
 // powers = sum over the k-split partials, in split order
 __global__ void sum_splits(const float* __restrict__ part, int splits,

@@ -36,15 +36,14 @@
 // walks the K candidates itself for its refresh, the candidate ranks and
 // its own allocation; the free-slot rank is a warp ballot. With S <= 32
 // the block is one warp and its barriers are warp barriers. One extra
-// block runs the burst chain, a warp per channel with lane j holding
-// block j of each 32 (coalesced loads and stores). All segments and the
-// burst bank share one launch. The candidate geometry arrives
+// block runs the burst chain, a warp per channel: kernel D's chain,
+// shared through powact_chain.cuh. All segments and the burst bank
+// share one launch. The candidate geometry arrives
 // precomputed in the pack (it is slot-table independent). The TPU
 // kernel's tier ladders, chunk closed forms, gap prefilter and [1, S] row
 // layout were TPU devices and are not reproduced.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "powact_chain.cuh"
 
 namespace {
 
@@ -62,21 +61,6 @@ struct SegTab {
   int state_off[MAXG]; // int32 [10, S] slot table
   int flag_off[MAXG];  // uint8 [3, S, B] got/processed/emit
   int pu_off[MAXG];    // int32 [S, B] phase_used
-};
-
-struct PaArgs {
-  int c;
-  const float* powers;     // [B, C]
-  const float* lastpower;  // [C]
-  const int* active;       // [C]
-  const int* phase;        // [C]
-  const int* delta;        // [C]
-  float thresh;
-  int r;
-  int* state_out;          // [2, C]: active, phase
-  float* lastpower_out;    // [C]
-  uint8_t* bflags;         // [3, C, B]: rise, fall, processed
-  int* pu;                 // [C, B] phase_used
 };
 
 __device__ __forceinline__ int mod_pos(int x, int r) {
@@ -160,57 +144,6 @@ __device__ void stage(int* dst, const int* src, int n) {
   }
 }
 
-// The burst chain, one warp per channel. Every lane runs the same serial
-// chain; lane j loads the power of block b0 + j and keeps that block's
-// results, so loads and stores are one coalesced access per 32 blocks
-// instead of one dependent access per block.
-__device__ void powact_chain(const PaArgs& pa, int nb) {
-  const int lane = threadIdx.x & 31;
-  const size_t cb = static_cast<size_t>(pa.c) * nb;
-  for (int c = threadIdx.x >> 5; c < pa.c; c += blockDim.x >> 5) {
-    bool a = pa.active[c] != 0;
-    float lp = pa.lastpower[c];
-    int ph = pa.phase[c];
-    const int d = pa.delta[c];
-    for (int b0 = 0; b0 < nb; b0 += 32) {
-      const int bl = b0 + lane;
-      const float p_lane =
-          bl < nb ? pa.powers[static_cast<size_t>(bl) * pa.c + c] : 1.0f;
-      bool rise_l = false, fall_l = false, proc_l = false;
-      int pu_l = 0;
-      const int n = min(32, nb - b0);
-      for (int j = 0; j < n; ++j) {
-        const float p = __shfl_sync(0xffffffffu, p_lane, j);
-        const bool rise = !a && (p / lp >= pa.thresh);
-        const bool fall = a && (lp / p >= pa.thresh);
-        const bool proc = rise || a;
-        const int pused = rise ? d : ph;
-        ph = rise ? mod_pos(2 * d, pa.r) : (proc ? mod_pos(ph + d, pa.r) : ph);
-        a = (a || rise) && !fall;
-        lp = p;
-        if (lane == j) {
-          rise_l = rise;
-          fall_l = fall;
-          proc_l = proc;
-          pu_l = pused;
-        }
-      }
-      if (bl < nb) {
-        const size_t i = static_cast<size_t>(c) * nb + bl;
-        pa.bflags[i] = rise_l;
-        pa.bflags[cb + i] = fall_l;
-        pa.bflags[2 * cb + i] = proc_l;
-        pa.pu[i] = pu_l;
-      }
-    }
-    if (lane == 0) {
-      pa.state_out[c] = a;
-      pa.state_out[pa.c + c] = ph;
-      pa.lastpower_out[c] = lp;
-    }
-  }
-}
-
 __global__ void lifecycle_kernel(SegTab tab, int nb,
                                  const int* __restrict__ packs,
                                  const int* __restrict__ st_in,
@@ -219,9 +152,10 @@ __global__ void lifecycle_kernel(SegTab tab, int nb,
                                  int* __restrict__ ctr_out,
                                  uint8_t* __restrict__ bflags,
                                  int* __restrict__ pu_out, int kmax,
-                                 int chunk_blocks, PaArgs pa) {
-  if (blockIdx.x == tab.n) {
-    powact_chain(pa, nb);
+                                 int chunk_blocks, PowactArgs pa) {
+  if (blockIdx.x == tab.n) {  // the burst chain, a warp per channel
+    for (int c = threadIdx.x >> 5; c < pa.n_chan; c += blockDim.x >> 5)
+      powact_channel(pa, c);
     return;
   }
   extern __shared__ unsigned long long smem[];
@@ -409,17 +343,25 @@ __global__ void lifecycle_kernel(SegTab tab, int nb,
 // seg_tab: HOST int32 [n_seg, 8] rows (k, r, delay, s, pack_off,
 // state_off, flag_off, pu_off). Segment buffers are flat concatenations
 // at those offsets; counters are int32 [n_seg, 2] (alloc_counter,
-// dropped). n_pa == 0 runs no burst chain. threads: a multiple of 32
-// >= every segment's slot count.
+// dropped). The pa_* arguments are those of fdc_powact (powact.cu);
+// n_pa == 0 runs no burst chain. threads: a multiple of 32 >= every
+// segment's slot count.
 extern "C" int fdc_slot_lifecycle(
     int n_seg, const void* seg_tab, int nb, const void* packs,
     const void* state_in, const void* ctr_in, void* state_out, void* ctr_out,
     void* bflags, void* pu, int kmax, int n_pa, const void* pa_powers,
     const void* pa_lastpower, const void* pa_active, const void* pa_phase,
-    const void* pa_delta, float pa_thresh, int pa_r, void* pa_state_out,
-    void* pa_lastpower_out, void* pa_bflags, void* pa_pu, int threads,
-    void* stream) {
-  if (n_seg > MAXG) return static_cast<int>(cudaErrorInvalidValue);
+    const void* pa_delta, float pa_thresh, int pa_r, void* pa_rise,
+    void* pa_fall, void* pa_processed, void* pa_phase_used,
+    void* pa_active_out, void* pa_phase_out, void* pa_lastpower_out,
+    int threads, void* stream) {
+  PowactArgs pa;
+  if (n_seg > MAXG ||
+      !powact_args(&pa, pa_powers, nb, n_pa, pa_lastpower, pa_active,
+                   pa_phase, pa_delta, pa_thresh, pa_r, pa_rise, pa_fall,
+                   pa_processed, pa_phase_used, pa_active_out, pa_phase_out,
+                   pa_lastpower_out))
+    return static_cast<int>(cudaErrorInvalidValue);
   SegTab tab{};
   tab.n = n_seg;
   const int* st = static_cast<const int*>(seg_tab);
@@ -434,19 +376,6 @@ extern "C" int fdc_slot_lifecycle(
     tab.flag_off[g] = row[6];
     tab.pu_off[g] = row[7];
   }
-  PaArgs pa{};
-  pa.c = n_pa;
-  pa.powers = static_cast<const float*>(pa_powers);
-  pa.lastpower = static_cast<const float*>(pa_lastpower);
-  pa.active = static_cast<const int*>(pa_active);
-  pa.phase = static_cast<const int*>(pa_phase);
-  pa.delta = static_cast<const int*>(pa_delta);
-  pa.thresh = pa_thresh;
-  pa.r = pa_r;
-  pa.state_out = static_cast<int*>(pa_state_out);
-  pa.lastpower_out = static_cast<float*>(pa_lastpower_out);
-  pa.bflags = static_cast<uint8_t*>(pa_bflags);
-  pa.pu = static_cast<int*>(pa_pu);
   const int blocks = n_seg + (n_pa > 0 ? 1 : 0);
   // per chunk of blocks: staged candidate rows (7 K ints), a busy flag,
   // and the flag buffers (3 bytes + 1 int per thread), within 44 KB of

@@ -1,11 +1,13 @@
 """Build and load the hand-written Hopper kernels (``csrc/*.cu``).
 
 The kernels ship as CUDA C++ sources with a plain C interface. On first
-use, ``nvcc`` compiles all of them for ``sm_90a`` into one shared library
-under ``fdc_tpu_torch/_build/`` (named by a hash of the sources and flags,
-so an edited source rebuilds), which is loaded with ``ctypes``. Nothing
-here runs at import time: the CPU tests import every module, and only a
-CUDA tensor reaching a kernel wrapper triggers the build.
+use, ``nvcc`` compiles each source for ``sm_90a`` into an object (one
+compiler process per source, all started together) and links the
+objects into one shared library under ``fdc_tpu_torch/_build/``, named by
+a hash of the sources (headers included) and flags, so an edited source
+rebuilds. The library is loaded with ``ctypes``. Nothing here runs at
+import time: the CPU tests import every module, and only a CUDA tensor
+reaching a kernel wrapper triggers the build.
 
 Each C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``;
@@ -30,7 +32,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -40,10 +42,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "fdc_extract_shared": [_P, _I, _I, _P, _I, _P, _I, _I, _P,
                            _P, _I, _P, _I, _P, _P],
+    "fdc_extract_static": [_P, _I, _I, _P, _I, _P, _I, _I, _P, _P],
     "fdc_greedy_accept": [_P, _P, _P, _P, _I, _I, _P],
     "fdc_slot_lifecycle": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                            _I, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P,
-                           _P, _I, _P],
+                           _P, _P, _P, _P, _I, _P],
+    "fdc_powact": [_P, _I, _I, _P, _P, _P, _P, _F, _I, _P, _P, _P, _P,
+                   _P, _P, _P, _P],
 }
 
 _lib = None
@@ -61,6 +66,19 @@ def _nvcc() -> str:
     return path
 
 
+def _run(cmds) -> str:
+    """Run the commands at once; their stderr, or raise if one failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (stdout, stderr) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{stdout}{stderr}")
+    return "".join(stderr for _, stderr in outs)
+
+
 def _build() -> Path:
     sources = sorted(_CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(_FLAGS).encode())
@@ -71,20 +89,20 @@ def _build() -> Path:
     if out.exists():
         _info.update(path=str(out), seconds=0.0, cached=True)
         return out
+    nvcc = _nvcc()
     _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
+    objs = [tmp.with_name(f"{tmp.name}.{p.stem}.o") for p in sources]
     t = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+    ptxas = _run([[nvcc, *_FLAGS, "-c", "-o", str(o), str(p)]
+                  for p, o in zip(sources, objs)])
+    _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     os.replace(tmp, out)  # atomic: no build loads a partial file
+    for o in objs:
+        o.unlink()
     _info.update(
         path=str(out), seconds=time.perf_counter() - t, cached=False,
-        ptxas=proc.stderr,
+        ptxas=ptxas,
     )
     return out
 

@@ -6,8 +6,8 @@ front-end feeding throughput channels, power-activated burst channels
 and activity-detection segments. Construction solves the static
 geometry and registers the constant tables as buffers on ``device``; the
 step ``(carry, samples, t0) -> (carry, outputs)`` processes
-``batch_blocks`` FFT blocks at a time through the three hand-written
-kernels, and the host loop (``process`` / ``flush``) buffers samples
+``batch_blocks`` FFT blocks at a time through the hand-written kernels,
+and the host loop (``process`` / ``flush``) buffers samples
 into batches and runs the emission layer.
 
 The carry is a plain dict of tensors with the JAX package's keys
@@ -40,8 +40,9 @@ from fdc_tpu_torch.models.segment_detection import (
     scan_slots_multi,
 )
 from fdc_tpu_torch.models.throughput import ThroughputChannelizer
-from fdc_tpu_torch.ops import extract_fused
 from fdc_tpu_torch.ops.extract import (
+    bucket_folded,
+    extract_bucket,
     extract_bucket_measured,
     extract_bucket_phased,
 )
@@ -97,10 +98,6 @@ def _check_slice(cfg: ChannelizerConfig) -> None:
         missing.append("native_emission=True (the C++ emitters)")
     if not cfg.use_mxu_fft:
         missing.append("use_mxu_fft=False (FFT-lowered subband transforms)")
-    if (cfg.activity_controlled_channels
-            and not cfg.activity_detection_segments):
-        missing.append("a burst bank without detection segments (the "
-                       "standalone powact kernel)")
     if missing:
         raise NotImplementedError(
             "fdc_tpu_torch does not port yet: " + "; ".join(missing)
@@ -160,15 +157,28 @@ class FrequencyDomainChannelizer(nn.Module):
                 cfg.blocksize, cfg.relinvovl, pa_chans,
                 cfg.act_contr_threshold,
             )
+        # -- fused extraction plan ---------------------------------------------
+        # throughput + burst channels sharing an FFT width extract as one
+        # bucket over spec_ext (JAX: models/channelizer.py:255-271); the
+        # throughput gain folds into its (linear) windows. Their windows
+        # differ, so the table is per channel (kernel E).
+        self._fused = {}
         if self.throughput and self.power_bank:
-            shared = ({b.width for b in self.throughput.buckets}
-                      & {b.width for b in self.power_bank.buckets})
-            if shared:
-                raise NotImplementedError(
-                    f"throughput and burst channels of equal width "
-                    f"{sorted(shared)}: their fused bucket needs the "
-                    f"fused_extract_static kernel, not ported yet"
-                )
+            tp_by_w = {b.width: b for b in self.throughput.buckets}
+            pa_by_w = {b.width: b for b in self.power_bank.buckets}
+            for w in sorted(set(tp_by_w) & set(pa_by_w)):
+                tb, pb = tp_by_w[w], pa_by_w[w]
+                starts = np.concatenate([tb.starts, pb.starts])
+                wins = np.concatenate([tb.windows * np.float32(w),
+                                       pb.windows])
+                name = f"fused_w{w}"
+                self.register_buffer(f"{name}_starts",
+                                     torch.from_numpy(starts))
+                self.register_buffer(f"{name}_folded", torch.from_numpy(
+                    bucket_folded(cfg.blocksize, starts, wins,
+                                  keep_from=w - pb.out_len, gain=1.0)
+                ))
+                self._fused[w] = (name, tb)
         self.segments = nn.ModuleList(
             SegmentDetector(
                 i, cfg.blocksize, cfg.relinvovl, a, b,
@@ -330,6 +340,18 @@ class FrequencyDomainChannelizer(nn.Module):
         cfg = self.config
         r = cfg.relinvovl
         out = {}
+        # fused throughput + burst buckets over spec_ext: the throughput
+        # part takes rows 1..B and its phase from t0 (finish_bucket), the
+        # burst part keeps every row (JAX: models/channelizer.py:405-418)
+        fused_mats = {}
+        fused_pa_ext = {}
+        for w, (name, tb) in self._fused.items():
+            y = extract_bucket(spec_ext, getattr(self, f"{name}_starts"),
+                               getattr(self, f"{name}_folded"))
+            n_tp = len(tb.channel_ids)
+            fused_mats[w] = self.throughput.finish_bucket(tb, y[:n_tp, 1:],
+                                                          t0)
+            fused_pa_ext[w] = y[n_tp:]
         powers_fused = None
         if self.throughput:
             # t0 is always a whole number of batches, so with B % R == 0
@@ -337,13 +359,18 @@ class FrequencyDomainChannelizer(nn.Module):
             fold_phase = cfg.batch_blocks % r == 0
             mats = []
             for bucket in self.throughput.buckets:
+                if bucket.width in fused_mats:
+                    mats.append(fused_mats[bucket.width])
+                    continue
                 starts, folded = self.throughput.tables(bucket)
                 if not fold_phase:
-                    y = extract_fused.extract_shared(spec, starts, folded)
+                    y = extract_bucket(spec, starts, folded)
                     mats.append(self.throughput.finish_bucket(bucket, y, t0))
                     continue
-                if self.measure_masks is not None and powers_fused is None:
-                    # the detection measures ride the first bucket's launch
+                if (self.measure_masks is not None and powers_fused is None
+                        and folded.dim() == 2):
+                    # the detection measures ride the first non-fused
+                    # shared-matrix bucket's kernel A launch
                     y, powers_fused = extract_bucket_measured(
                         spec, starts, folded, r, self.measure_masks
                     )
@@ -369,11 +396,11 @@ class FrequencyDomainChannelizer(nn.Module):
                 pa_powers = pa.measure(sq)
             # burst extraction is flag-independent: every channel, every
             # row of spec_ext (the flags select what the host emits)
-            pa_ext = {}
+            pa_ext = dict(fused_pa_ext)
             for bucket in pa.buckets:
-                starts, folded = pa.tables(bucket)
-                pa_ext[bucket.width] = extract_fused.extract_shared(
-                    spec_ext, starts, folded)
+                if bucket.width not in pa_ext:
+                    pa_ext[bucket.width] = extract_bucket(
+                        spec_ext, *pa.tables(bucket))
         seg_powers = []
         for i, sd in enumerate(self.segments):
             if powers_fused is not None:
@@ -388,10 +415,15 @@ class FrequencyDomainChannelizer(nn.Module):
 
     def _scan_detections(self, carry_io, pa_powers, seg_packed):
         """The sequential detection logic — slot lifecycles and the burst
-        hysteresis in one kernel C launch — and the extraction plans.
-        Updates ``carry_io`` in place; returns the flags/plans."""
+        hysteresis in one kernel C launch, or the burst hysteresis alone
+        in kernel D without segments — and the extraction plans. Updates
+        ``carry_io`` in place; returns the flags/plans."""
         scans = {"segs": []}
         if not len(self.segments):
+            if self.power_bank:
+                carry_io["powact"], scans["powact"] = (
+                    self.power_bank.scan_flags(pa_powers, carry_io["powact"])
+                )
             return scans
         states = [carry_io[f"seg{i}"] for i in range(len(self.segments))]
         if self.power_bank:

@@ -2,7 +2,9 @@
 
 Port of ``fdc_tpu.models.throughput`` (reference:
 python/FrequencyDomainChannelizer.py:218-231): channels sharing an FFT
-width form one bucket, extracted together by kernel A.
+width form one bucket, extracted together by kernel A — or by kernel E
+when their windows differ (channels of different bandwidths that round
+to one power-of-2 width).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 from torch import nn
 
 from fdc_tpu_torch.config import WindowType, solve_throughput_channel
-from fdc_tpu_torch.ops.extract import apply_phase_pairs, shared_folded_matrix
+from fdc_tpu_torch.ops.extract import apply_phase_pairs, bucket_folded
 from fdc_tpu_torch.ops.windows import base_window
 
 __all__ = ["ThroughputChannelizer"]
@@ -32,8 +34,9 @@ class _Bucket:
 
 class ThroughputChannelizer(nn.Module):
     """Width-bucketed fixed-channel extractor. Buffers per bucket:
-    ``{name}_starts`` [C] int32 and ``{name}_folded`` [2l, 2k] float32
-    (window * gain l * trim * IDFT, rows interleaved for kernel A)."""
+    ``{name}_starts`` [C] int32 and ``{name}_folded`` (window * gain l *
+    trim * IDFT, rows interleaved): [2l, 2k] float32 shared by the bucket
+    (kernel A), or [C, 2l, 2k] when the windows differ (kernel E)."""
 
     def __init__(self, blocksize: int, relinvovl: int, channels,
                  windowtype: WindowType = WindowType.RECTANGULAR):
@@ -67,7 +70,7 @@ class ThroughputChannelizer(nn.Module):
             self.register_buffer(f"{bucket.name}_starts",
                                  torch.from_numpy(starts))
             self.register_buffer(f"{bucket.name}_folded", torch.from_numpy(
-                shared_folded_matrix(
+                bucket_folded(
                     blocksize, starts, wins,
                     keep_from=width - bucket.out_len, gain=float(width),
                 )

@@ -8,11 +8,12 @@ reference's window banks is the base window times e^{j*2pi*p/R}, so the
 overlap-save phase compensation factors out of the transform and is
 applied as a per-row scalar rotation (:func:`apply_phase_pairs`).
 
-Static buckets always extract through kernel A (``extract_fused``): the
-JAX package's TPU-only engagement gates and VMEM budgets do not apply on
-the card, and its XLA fallbacks compute the same values. All extraction
-outputs use the float32 ``[..., k, 2]`` pair layout of the step-output
-contract.
+Static buckets always extract through a kernel (``extract_fused``):
+kernel A when the bucket's channels share one window, kernel E when each
+has its own. The JAX package's TPU-only engagement gates and VMEM
+budgets do not apply on the card, and its XLA fallbacks compute the same
+values. All extraction outputs use the float32 ``[..., k, 2]`` pair
+layout of the step-output contract.
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ __all__ = [
     "apply_phase_pairs",
     "gather_slices",
     "shared_folded_matrix",
+    "static_folded_matrices",
+    "bucket_folded",
+    "extract_bucket",
     "extract_bucket_phased",
     "extract_bucket_measured",
     "extract_dynamic",
@@ -60,32 +64,62 @@ def gather_slices(spectrum: torch.Tensor, starts: torch.Tensor,
     return spectrum[:, idx].permute(1, 0, 2)
 
 
-def shared_folded_matrix(n: int, starts: np.ndarray,
-                         base_windows: np.ndarray, keep_from: int,
-                         gain: float) -> np.ndarray:
-    """The shared [2l, 2k] window * gain * trim * IDFT matrix of an
-    equal-window static bucket, rows interleaved for kernel A.
-
-    The TPU engagement gates and VMEM budgets of
-    ``fdc_tpu.ops.extract._shared_fused_matrix`` / ``measured_folded_matrix``
-    do not apply here, so the two functions are one. A bucket whose channels
-    have different windows would need the per-channel kernel
-    (``fused_extract_static``), which is not ported yet.
-    """
-    l = base_windows.shape[-1]
-    if not (base_windows == base_windows[:1]).all():
-        raise NotImplementedError(
-            "static bucket with per-channel windows: needs the "
-            "fused_extract_static kernel, not ported yet"
-        )
+def _check_slices(n: int, starts, l: int) -> None:
     starts = np.asarray(starts)
     if starts.min() < 0 or starts.max() + l > n:
         raise ValueError(f"bucket slices out of the {n}-bin spectrum")
+
+
+def shared_folded_matrix(n: int, starts: np.ndarray,
+                         base_windows: np.ndarray, keep_from: int,
+                         gain: float) -> np.ndarray:
+    """The [2l, 2k] window * gain * trim * IDFT matrix shared by the
+    channels of an equal-window static bucket (``base_windows`` [C, l],
+    every row the same; row 0 is folded), rows interleaved for kernel A.
+    The TPU engagement gates and VMEM budgets of
+    ``fdc_tpu.ops.extract._shared_fused_matrix`` /
+    ``measured_folded_matrix`` do not apply here."""
+    l = base_windows.shape[-1]
+    _check_slices(n, starts, l)
     m = _rr_idft_matrix(l, keep_from, True, float(gain), pairs=True)
     folded = (
         np.concatenate([base_windows[0], base_windows[0]])[:, None] * m
     ).astype(np.float32)
     return interleave_rows(folded)
+
+
+def static_folded_matrices(n: int, starts: np.ndarray, windows: np.ndarray,
+                           keep_from: int, gain: float) -> np.ndarray:
+    """The per-channel [C, 2l, 2k] folded matrices of a static bucket
+    whose channels have different windows (``windows`` [C, l]), rows
+    interleaved for kernel E — the fold of
+    ``fdc_tpu.ops.extract.extract_bucket`` (its ``fused_extract_static``
+    tables and their XLA twin)."""
+    l = windows.shape[-1]
+    _check_slices(n, starts, l)
+    m = _rr_idft_matrix(l, keep_from, True, float(gain), pairs=True)
+    folded = (np.concatenate([windows, windows], axis=1)[:, :, None]
+              * m[None]).astype(np.float32)
+    return np.stack([interleave_rows(f) for f in folded])
+
+
+def bucket_folded(n: int, starts: np.ndarray, windows: np.ndarray,
+                  keep_from: int, gain: float) -> np.ndarray:
+    """A static bucket's extraction table: the shared [2l, 2k] matrix
+    (kernel A) when every channel has the same window, else the
+    per-channel [C, 2l, 2k] matrices (kernel E)."""
+    if (windows == windows[:1]).all():
+        return shared_folded_matrix(n, starts, windows, keep_from, gain)
+    return static_folded_matrices(n, starts, windows, keep_from, gain)
+
+
+def extract_bucket(spectrum, starts, folded):
+    """[C, R, k, 2] phase-0 extraction of a static bucket through its
+    table from :func:`bucket_folded`: kernel A for a shared matrix,
+    kernel E for per-channel matrices."""
+    if folded.dim() == 2:
+        return extract_fused.extract_shared(spectrum, starts, folded)
+    return extract_fused.extract_static(spectrum, starts, folded)
 
 
 def _row_phases(starts: torch.Tensor, b: int, relinvovl: int):
@@ -96,19 +130,18 @@ def _row_phases(starts: torch.Tensor, b: int, relinvovl: int):
 
 
 def extract_bucket_phased(spectrum, starts, folded, relinvovl: int):
-    """[C, B, k, 2] extraction of an equal-window static bucket
-    (``folded`` from :func:`shared_folded_matrix`) with the phase
-    compensation applied, under the static contract that the global index
-    of row 0 is ≡ 0 (mod R)."""
-    y = extract_fused.extract_shared(spectrum, starts, folded)
+    """:func:`extract_bucket` with the phase compensation applied, under
+    the static contract that the global index of row 0 is ≡ 0 (mod R)."""
+    y = extract_bucket(spectrum, starts, folded)
     return apply_phase_pairs(y, _row_phases(starts, y.shape[1], relinvovl),
                              relinvovl)
 
 
 def extract_bucket_measured(spectrum, starts, folded, relinvovl: int,
                             power_masks):
-    """:func:`extract_bucket_phased` + the detection power measures
-    ``powers = |spectrum|^2 @ power_masks`` [B, Cm] from the same kernel
+    """:func:`extract_bucket_phased` of an equal-window bucket (a shared
+    ``folded`` matrix) + the detection power measures
+    ``powers = |spectrum|^2 @ power_masks`` [B, Cm] from the same kernel A
     launch (reference measures: lib/PowerActivationChannel_impl.cc:286-306,
     lib/SegmentDetection_impl.cc:178-193)."""
     y, powers = extract_fused.extract_shared(spectrum, starts, folded,

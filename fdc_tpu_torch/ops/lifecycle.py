@@ -5,10 +5,9 @@ Replaces the Pallas kernel ``_lifecycle_kernel`` of
 powact chain). The plain version is the semantics the kernel is held to:
 per segment the scan body of ``SegmentDetector.scan_slots``
 (``fdc_tpu/models/segment_detection.py:571-690``) followed by
-``_free_tombstones``, and for the burst bank the scan body of
-``PowerActivationBank.scan_flags``
-(``fdc_tpu/models/power_activation.py:184-212``). The CUDA source is
-``csrc/lifecycle.cu``.
+``_free_tombstones``, and for the burst bank
+``ops.powact.powact_flags_plain``, the one definition kernel D is held to
+as well. The CUDA source is ``csrc/lifecycle.cu``.
 
 Candidates arrive as the [B, 7K] pack of
 ``SegmentDetector._packed_candidates``: per block the groups (start bin,
@@ -25,6 +24,7 @@ import torch
 
 from fdc_tpu_torch import kernels
 from fdc_tpu_torch.ops.detect import match_candidates
+from fdc_tpu_torch.ops.powact import powact_flags_plain
 
 __all__ = [
     "SLOT_KEYS",
@@ -134,33 +134,6 @@ def _scan_segment_plain(packed, state, k: int, r: int, delay: int):
     return _free_tombstones(st), (got, processed, emit, phase_used)
 
 
-def _powact_plain(powact, r: int, thresh: float):
-    """The burst hysteresis chain over [B, C] powers; flags [C, B]."""
-    thr = float(np.float32(thresh))
-    delta = powact["delta"]
-    active, lastpower, phase = (
-        powact["active"], powact["lastpower"], powact["phase"]
-    )
-    flags = []
-    for pwr in powact["powers"]:
-        rise = ~active & (pwr / lastpower >= thr)
-        fall = active & (lastpower / pwr >= thr)
-        processed = rise | active
-        phase_used = torch.where(rise, delta, phase)
-        phase = torch.where(
-            rise, (2 * delta) % r,
-            torch.where(processed, (phase + delta) % r, phase),
-        )
-        active = (active | rise) & ~fall
-        lastpower = pwr
-        flags.append((rise, fall, processed, phase_used))
-    rise, fall, processed, phase_used = (
-        torch.stack(f, dim=1) for f in zip(*flags)
-    )
-    new_state = {"active": active, "lastpower": lastpower, "phase": phase}
-    return new_state, (rise, fall, processed, phase_used)
-
-
 def slot_lifecycle_multi_plain(packs, states, *, n_cands, rs, delays,
                                powact=None, pa_r=None, pa_thresh=None):
     """Plain PyTorch version of :func:`slot_lifecycle_multi`."""
@@ -170,7 +143,9 @@ def slot_lifecycle_multi_plain(packs, states, *, n_cands, rs, delays,
     )
     if powact is None:
         return results
-    return results, _powact_plain(powact, pa_r, pa_thresh)
+    return results, powact_flags_plain(powact["powers"], powact,
+                                       powact["delta"], r=pa_r,
+                                       thresh=pa_thresh)
 
 
 def slot_lifecycle_multi(packs, states, *, n_cands, rs, delays,
@@ -234,28 +209,35 @@ def slot_lifecycle_multi(packs, states, *, n_cands, rs, delays,
 
     n_pa = 0
     pa_ptrs = [None] * 5
-    pa_outs = [None] * 4
+    pa_outs = [None] * 7
     thresh = 0.0
     if powact is not None:
         pw = powact["powers"].contiguous()
         if pw.dtype != torch.float32 or pw.shape[0] != nb:
             raise ValueError("slot_lifecycle_multi: float32 [B, C] burst "
                              "powers expected")
+        if pa_r < 1 or pa_r & (pa_r - 1):
+            raise ValueError("slot_lifecycle_multi: relinvovl must be a "
+                             "power of two")
         n_pa = pw.shape[1]
         pa_in = [
             pw,
             powact["lastpower"].to(torch.float32).contiguous(),
-            powact["active"].to(torch.int32),
+            powact["active"].to(torch.bool).contiguous(),
             powact["phase"].to(torch.int32).contiguous(),
             powact["delta"].to(torch.int32).contiguous(),
         ]
         pa_ptrs = [t.data_ptr() for t in pa_in]
-        pa_state = torch.empty((2, n_pa), dtype=torch.int32, device=dev)
-        pa_last = torch.empty(n_pa, dtype=torch.float32, device=dev)
-        pa_bflags = torch.empty((3, n_pa, nb), dtype=torch.bool, device=dev)
+        pa_flags = torch.empty((3, n_pa, nb), dtype=torch.bool, device=dev)
         pa_pu = torch.empty((n_pa, nb), dtype=torch.int32, device=dev)
-        pa_outs = [t.data_ptr() for t in (pa_state, pa_last, pa_bflags,
-                                          pa_pu)]
+        pa_new = {
+            "active": torch.empty(n_pa, dtype=torch.bool, device=dev),
+            "lastpower": torch.empty(n_pa, dtype=torch.float32, device=dev),
+            "phase": torch.empty(n_pa, dtype=torch.int32, device=dev),
+        }
+        pa_outs = [t.data_ptr() for t in (
+            pa_flags[0], pa_flags[1], pa_flags[2], pa_pu, pa_new["active"],
+            pa_new["phase"], pa_new["lastpower"])]
         thresh = float(np.float32(pa_thresh))
     threads = max(32, -(-max(ss) // 32) * 32)
     rc = kernels.library().fdc_slot_lifecycle(
@@ -285,10 +267,7 @@ def slot_lifecycle_multi(packs, states, *, n_cands, rs, delays,
     results = tuple(results)
     if powact is None:
         return results
-    pa_new = {"active": pa_state[0] != 0, "lastpower": pa_last,
-              "phase": pa_state[1]}
-    return results, (pa_new, (pa_bflags[0], pa_bflags[1], pa_bflags[2],
-                              pa_pu))
+    return results, (pa_new, (pa_flags[0], pa_flags[1], pa_flags[2], pa_pu))
 
 
 slot_lifecycle_multi.launches = 0

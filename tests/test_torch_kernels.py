@@ -8,8 +8,8 @@ machine with the card, where JAX is absent:
 Tests marked ``cuda`` need a CUDA device (the kernels have no CPU mode)
 and skip without one; the others check the dispatch rule on the CPU.
 Tolerances: extractions rtol 2e-4 / atol 2e-5 of each tensor's max,
-measures rtol 1e-5 (another accumulation order), flags and slot tables
-exact.
+measures rtol 1e-5 (another accumulation order), flags, slot tables and
+burst states exact.
 """
 
 import numpy as np
@@ -18,7 +18,7 @@ import torch
 
 from fdc_tpu_torch import kernels
 from fdc_tpu_torch.models.segment_detection import SegmentDetector
-from fdc_tpu_torch.ops import detect, extract_fused, lifecycle
+from fdc_tpu_torch.ops import detect, extract, extract_fused, lifecycle, powact
 from fdc_tpu_torch.ops.fft import _rr_idft_matrix, interleave_rows
 
 RTOL, ATOL, PRTOL = 2e-4, 2e-5, 1e-5
@@ -48,6 +48,35 @@ def bucket(rng, rows, n, l, c):
     m = _rr_idft_matrix(l, l // 4, True, float(l), pairs=True)
     folded = (np.concatenate([win, win])[:, None] * m).astype(np.float32)
     return spec, starts, torch.from_numpy(interleave_rows(folded))
+
+
+def static_bucket(rng, rows, n, l, c):
+    """A bucket whose channels each have their own window (kernel E)."""
+    spec = torch.from_numpy((rng.standard_normal((rows, n))
+                             + 1j * rng.standard_normal((rows, n))
+                             ).astype(np.complex64))
+    starts = np.sort(rng.choice(n - l, c, replace=False)).astype(np.int32)
+    wins = rng.random((c, l)).astype(np.float32) + 0.1
+    mats = extract.static_folded_matrices(n, starts, wins, l // 4, float(l))
+    return spec, torch.from_numpy(starts), torch.from_numpy(mats)
+
+
+def powact_inputs(rng, nb, c):
+    """[B, C] powers straddling a 10 dB threshold, a mixed state, and the
+    init (lastpower = FLT_MAX) and zero-power floor (FLT_MIN) edges."""
+    flt_min = np.float32(1.1754944e-38)
+    powers = np.exp(rng.normal(0, 2.0, (nb, c))).astype(np.float32)
+    powers[rng.random((nb, c)) < 0.02] = flt_min
+    lastpower = np.exp(rng.normal(0, 2.0, c)).astype(np.float32)
+    lastpower[::3] = np.float32(3.4028235e38)
+    state = {
+        "active": torch.from_numpy(rng.random(c) < 0.5),
+        "lastpower": torch.from_numpy(lastpower),
+        "phase": torch.from_numpy(rng.integers(0, 4, c).astype(np.int32)),
+    }
+    # negative increments too: the phase is a floor modulo
+    delta = torch.from_numpy(rng.integers(-3, 4, c).astype(np.int32))
+    return torch.from_numpy(powers), state, delta
 
 
 def lifecycle_inputs(rng, nb, shapes, n_pa):
@@ -139,6 +168,24 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
                       lifecycle.slot_lifecycle_multi.launches)
 
 
+def test_cpu_tensors_take_the_plain_version_burst(monkeypatch):
+    """Kernels D and E: CPU tensors compute the plain version, launch
+    nothing and count nothing."""
+    monkeypatch.setattr(kernels, "library", lambda: pytest.fail("launched"))
+    rng = np.random.default_rng(8)
+    before = (extract_fused.extract_static.launches,
+              powact.powact_flags.launches)
+    args = static_bucket(rng, 7, 256, 32, 3)
+    assert_close_to_max(extract_fused.extract_static(*args),
+                        extract_fused.extract_static_plain(*args))
+    powers, state, delta = powact_inputs(rng, 40, 5)
+    got = powact.powact_flags(powers, state, delta, r=4, thresh=10.0)
+    ref = powact.powact_flags_plain(powers, state, delta, r=4, thresh=10.0)
+    assert_tree_equal(got, ref, "powact")
+    assert before == (extract_fused.extract_static.launches,
+                      powact.powact_flags.launches)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     """No silent fallback: a missing CUDA compiler is an error."""
     monkeypatch.setattr(kernels, "_BUILD", tmp_path)
@@ -146,6 +193,33 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels._build()
+
+
+def test_build_compiles_each_source_and_links_one_library(monkeypatch,
+                                                          tmp_path):
+    """One compiler process per source, then one link into the library
+    (a stand-in nvcc records its calls and writes its -o file)."""
+    calls = tmp_path / "calls.txt"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {calls}\n'
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'echo built > "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(kernels, "_BUILD", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    out = kernels._build()
+    lines = calls.read_text().splitlines()
+    sources = sorted(p.name for p in kernels._CSRC.glob("*.cu"))
+    compiles = [ln for ln in lines if " -c " in ln]
+    assert sorted(ln.split()[-1].rsplit("/", 1)[-1] for ln in compiles) == (
+        sources)
+    assert len(lines) == len(sources) + 1 and "-shared" in lines[-1]
+    assert out.read_text() == "built\n"
+    assert list(out.parent.iterdir()) == [out]  # no objects left behind
+    assert kernels._build() == out  # cached: no second build
+    assert len(calls.read_text().splitlines()) == len(lines)
 
 
 @pytest.mark.cuda
@@ -201,6 +275,35 @@ def test_slot_lifecycle_kernel_matches_plain(shapes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(13, 512, 64, 5), (513, 4096, 256, 2),
+                                   (513, 4096, 512, 5)],
+                         ids=["small", "example-w256", "example-w512"])
+def test_extract_static_kernel_matches_plain(shape):
+    dev = cuda_device()
+    rng = np.random.default_rng(9)
+    args = to(static_bucket(rng, *shape), dev)
+    before = extract_fused.extract_static.launches
+    got = extract_fused.extract_static(*args)
+    ref = extract_fused.extract_static_plain(*args)
+    assert extract_fused.extract_static.launches == before + 1
+    assert_close_to_max(got.cpu(), ref.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,c", [(512, 32), (37, 5), (1, 3)])
+def test_powact_kernel_matches_plain(nb, c):
+    dev = cuda_device()
+    rng = np.random.default_rng(10)
+    powers, state, delta = powact_inputs(rng, nb, c)
+    ref = powact.powact_flags_plain(powers, state, delta, r=4, thresh=10.0)
+    before = powact.powact_flags.launches
+    got = powact.powact_flags(powers.to(dev), to(state, dev), delta.to(dev),
+                              r=4, thresh=10.0)
+    assert powact.powact_flags.launches == before + 1
+    assert_tree_equal(got, ref, "powact")
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_bad_cuda_inputs():
     dev = cuda_device()
     rng = np.random.default_rng(4)
@@ -210,3 +313,10 @@ def test_wrappers_refuse_bad_cuda_inputs():
     with pytest.raises(TypeError):
         detect.greedy_accept_batch(starts[None].long(), starts[None].long(),
                                    starts[None] > 0)
+    spec, starts, mats = to(static_bucket(rng, 5, 256, 16, 3), dev)
+    with pytest.raises(TypeError):
+        extract_fused.extract_static(spec, starts, mats.double())
+    powers, state, delta = to(powact_inputs(rng, 8, 3), dev)
+    with pytest.raises(TypeError):
+        powact.powact_flags(powers, {**state, "active": state["phase"]},
+                            delta, r=4, thresh=10.0)

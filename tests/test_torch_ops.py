@@ -190,11 +190,22 @@ def test_extract_bucket_phased_matches_jax(measured):
     assert_close_to_max(got.numpy(), np.asarray(ref))
 
 
-def test_unequal_windows_refused():
+def test_unequal_windows_take_per_channel_tables():
+    """A bucket whose channels have different windows gets per-channel
+    matrices (kernel E); its phased extraction == fdc_tpu's."""
+    b, n, l, r = 12, 256, 32, 4
     rng = np.random.default_rng(0)
-    wins = rng.random((2, 16)).astype(np.float32)
-    with pytest.raises(NotImplementedError):
-        extract.shared_folded_matrix(64, np.array([0, 20]), wins, 4, 1.0)
+    spec = cspec(rng, b, n)
+    starts = np.array([0, 20, 150], np.int32)
+    wins = rng.random((3, l)).astype(np.float32)
+    folded = extract.bucket_folded(n, starts, wins, l // r, float(l))
+    assert folded.shape == (3, 2 * l, 2 * (l - l // r))
+    ref = jx_extract.extract_bucket_phased(
+        jnp.asarray(spec), starts, wins, r, gain=float(l), use_mxu=True,
+        keep_from=l // r)
+    got = extract.extract_bucket_phased(torch.from_numpy(spec), t32(starts),
+                                        torch.from_numpy(folded), r)
+    assert_close_to_max(got.numpy(), np.asarray(ref))
 
 
 def test_extract_slots_matches_jax():

@@ -222,7 +222,13 @@ def test_handover_from_jax_carry(pair, x):
     # bounded detection (max_candidates > 0), every slot row shipped
     dict(throughput_channels=[], activity_controlled_channels=[],
          max_candidates=4, extract_budget=0),
-], ids=["throughput-only", "no-burst", "no-throughput", "bounded-k"])
+    # burst bank without segments: the burst chain in kernel D
+    dict(activity_detection_segments=[]),
+    # a burst channel as wide as the throughput channels: their fused
+    # bucket has per-channel windows (kernel E)
+    dict(activity_controlled_channels=[(-0.45, 0.045)]),
+], ids=["throughput-only", "no-burst", "no-throughput", "bounded-k",
+        "powact-only", "fused-width"])
 def test_other_configs_match_jax(overrides):
     """Configs off the flagship that the ported path covers: step
     outputs over 3 steps, then process + flush events."""
@@ -241,7 +247,8 @@ def test_other_configs_match_jax(overrides):
     jf.reset()
     ej = jf.process(x).events + jf.flush().events
     et = tf.process(x).events + tf.flush().events
-    assert bool(ej) == bool(tf.config.activity_detection_segments)
+    assert bool(ej) == bool(tf.config.activity_detection_segments
+                            or tf.config.activity_controlled_channels)
     if ej:
         assert_events_match(et, ej)
 
@@ -272,10 +279,7 @@ def test_convert_roundtrip(pair):
     dict(extract_width_split=64, extract_budget_narrow=4),
     dict(native_emission=True),
     dict(use_mxu_fft=False),
-    dict(activity_detection_segments=[]),  # burst bank without segments
-    dict(activity_controlled_channels=[(-0.45, 0.045)]),  # fused width
-], ids=["splits", "two-tier", "native", "fft-lowering", "powact-only",
-        "fused-width"])
+], ids=["splits", "two-tier", "native", "fft-lowering"])
 def test_refuses_unported(overrides):
     with pytest.raises(NotImplementedError):
         FrequencyDomainChannelizer(_flagship(**SMALL, **overrides),
