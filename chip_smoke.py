@@ -4,11 +4,16 @@
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc`` (the kernels are built from ``fdc_tpu_torch/csrc``
 on first use), imports neither JAX nor fdc_tpu, and exits non-zero on
-any failure. It drives three paths at full width, B=512: the flagship
+any failure. It drives eight paths at full width, B=512: the flagship
 (``_flagship``), the upstream example (``reference_example``: fused
-throughput + burst buckets, one detection segment) and BASELINE config 3
-(``powact32``: 32 burst channels, the standalone burst chain). Phases,
-one or more lines each:
+throughput + burst buckets, one detection segment), BASELINE config 3
+(``powact32``: 32 burst channels, the standalone burst chain), config 2
+(``cfg2_dama16``: 16 throughput channels, kernel A's quarter-turn phase
+fold), configs 4, 5 and 5b (two-tier slot extraction, 32, 512 and 4 x
+128 slots), and the multi-segment vcm detector built from config 5b as
+``python -m fdc_tpu vcm`` maps a configuration, fed spectra that the
+port's own front end makes on the card. Phases, one or more lines each, each ending with its
+wall seconds:
 
 1. the card (nvidia-smi name and power limit), torch / CUDA versions, and
    the kernel build;
@@ -16,9 +21,12 @@ one or more lines each:
    on the inputs of every call it gets in each path's second step (the
    first leaves the slot tables and burst states busy), and kernel D on
    the init / floor edges;
-3. each path: ``FrequencyDomainChannelizer(cfg, device="cuda")`` over a
-   scripted capture, process + flush, with the kernels' launch counts
-   zeroed just before and read just after that run;
+3. each path: ``FrequencyDomainChannelizer(cfg, device="cuda")`` (the
+   vcm path: its front end + ``ActivityDetectionRunner``) over a scripted
+   capture, process + flush, with the kernels' launch counts zeroed just
+   before and read just after that run; configs 4 and 5 also through
+   ``process_spectra`` on spectra framed on the card, with the same
+   events;
 4. each path through ``device="cpu"`` (the plain versions) for two
    batches, compared with the card's step outputs and events;
 5. timing with CUDA events: each path's step on the kernel path (with
@@ -54,6 +62,17 @@ TONE_BIN = -589  # exact bin near the centre of throughput channel 20
 N_BATCHES = 5
 BURST_TONE = 0.2  # tone amplitude in the burst paths' throughput channels
 GATES_END = 3.4   # batches: every burst carrier is off after this
+# detection captures: a comb of exact-bin tones of one amplitude in every
+# bin (a floor whose cells all have the same power: no noise edge is ever
+# near a ratio threshold) and carriers 27-34 dB over it, each at its own
+# amplitude (0.6 dB apart: no two edges of equal strength); waves of
+# carriers (first batch, last batch, carriers per segment)
+FLOOR, CARRIER = 0.01, 0.2
+WAVES = ((0.10, 0.45, 12), (0.60, 0.95, 12), (1.20, 2.60, 6),
+         (3.00, GATES_END, 4))
+# carrier widths in detection cells: <= 4 fit the 64-bin narrow bucket
+# (40 bins x 1.4 = 56), 8 and 16 take 128 and 256 bins in the wide one
+WIDTHS = (2, 8, 1, 3, 4, 16, 2, 1, 3, 8, 2, 4)
 # the card's published peaks (H100 SXM data sheet, 700 W): fp32 outside
 # the tensor cores, and HBM bandwidth
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
@@ -209,6 +228,135 @@ def burst_capture(cfg, n_samples, seed=1):
     return x.astype(np.complex64)
 
 
+def carrier_capture(fdc, n_samples, seed=2):
+    """The detection paths' capture. The comb floor (FLOOR in every bin,
+    random phases) and, in every detection segment, the WAVES of
+    band-limited carriers on the segment's own cell grid (so a carrier's
+    edge cells are all carrier or all floor), CARRIER * 0.6 dB steps over
+    the floor's phases, gated with raised-cosine ramps of 1/8 block.
+    Returns (samples, number of carriers)."""
+    cfg = fdc.config
+    n = cfg.blocksize
+    periodic, gate = _synth(cfg, n_samples)
+    rng = np.random.default_rng(seed)
+    phase = np.exp(1j * rng.uniform(0.0, 2 * np.pi, n))
+    x = periodic(np.arange(n), FLOOR * phase)
+    n_carriers = 0
+    for g in (sd.geometry for sd in fdc.segments):
+        for a, b, count in WAVES:
+            count = min(count, g.n_cells // 20)
+            space = g.n_cells // count
+            for i in range(count):
+                w = min(WIDTHS[i % len(WIDTHS)], space - 2)
+                cell = i * space + (space - w) // 2
+                bins = g.start + cell * g.decimation - n // 2 + np.arange(
+                    w * g.decimation)  # fftshifted index -> FFT bin
+                x += gate(a, b, ramp=n // 8) * periodic(
+                    bins, CARRIER * 10 ** (0.03 * i) * phase[bins % n])
+                n_carriers += 1
+    return x.astype(np.complex64), n_carriers
+
+
+def card_spectra(cfg, x, device):
+    """The [B, N] spectra of each whole batch of samples in ``x``, framed
+    and transformed on ``device`` by the port's front end
+    (``frame_blocks`` + ``forward_spectrum``) one batch at a time, the
+    shapes ``process`` uses; a list of host arrays."""
+    import torch
+
+    from fdc_tpu_torch.ops.fft import forward_spectrum
+    from fdc_tpu_torch.ops.framing import frame_blocks
+
+    bs = cfg.batch_blocks * cfg.inplen
+    hist = torch.zeros(cfg.ovllen, dtype=torch.complex64, device=device)
+    spectra = []
+    for i in range(len(x) // bs):
+        blocks, hist = frame_blocks(
+            torch.from_numpy(x[i * bs:(i + 1) * bs]).to(device), hist,
+            cfg.blocksize)
+        spectra.append(forward_spectrum(blocks).cpu().numpy())
+    return spectra
+
+
+class VcmPath:
+    """The multi-segment vcm detector behind the port's own front end:
+    ``ActivityDetectionChannelizer`` built from a configuration as
+    ``fdc_tpu/__main__.py:506-529`` maps one, and its runner. ``stream``
+    feeds it :func:`card_spectra` as the vcm command does; the step
+    interface (``_device_init``, ``_device_step``) is the channelizer's,
+    so phases 2, 4 and 5 drive it alike."""
+
+    def __init__(self, cfg, device):
+        from fdc_tpu_torch import ActivityDetectionChannelizer
+
+        self.config, self.device = cfg, device
+        self.adc = ActivityDetectionChannelizer(
+            blocklen=cfg.blocksize,
+            segments=[list(s) for s in cfg.fdc_activity_detection_segments()],
+            thresh_db=cfg.act_det_threshold, relinvovl=cfg.relinvovl,
+            minchandist=cfg.minchandist,
+            channel_deactivation_delay=cfg.act_det_deactivation_delay,
+            window_flank_puffer=cfg.minchanflankpuffer,
+            max_slots=cfg.max_slots, max_candidates=cfg.max_candidates,
+            max_extract_width=cfg.max_extract_width, verbose=cfg.verbose,
+            extract_budget=cfg.extract_budget,
+            extract_width_split=cfg.extract_width_split,
+            extract_budget_narrow=cfg.extract_budget_narrow, device=device)
+        self.segments = self.adc.segments
+        self.batch_samples = cfg.batch_blocks * cfg.inplen
+        self._steps = self.adc.make_runner()  # its step functions only
+
+    def stream(self, x):
+        """A fresh runner over the capture: the tail zero-padded to a whole
+        batch, then silent batches while a slot is open (the vcm command's
+        end of stream). Returns (events, blocks with samples)."""
+        from fdc_tpu_torch.models.channelizer import finalize_rounds_bound
+
+        cfg, bs, n = self.config, self.batch_samples, len(x)
+        runner = self.adc.make_runner(maxblocks=cfg.act_det_maxblocks)
+        n_real = -(-n // bs)
+        rounds = finalize_rounds_bound(self.segments, cfg.batch_blocks)
+        x = np.concatenate([x, np.zeros((n_real + rounds) * bs - n,
+                                        np.complex64)])
+        events = []
+        for i, spec in enumerate(card_spectra(cfg, x, self.device)):
+            if i >= n_real and not runner.has_open_slots():
+                break
+            events += runner.process_spectra(spec)
+        return events, -(-n // cfg.inplen)
+
+    def _device_init(self):
+        import torch
+
+        return {"hist": torch.zeros(self.config.ovllen,
+                                    dtype=torch.complex64,
+                                    device=self.device),
+                "run": self._steps._device_init()}
+
+    def _device_step(self, carry, x, t0):
+        from fdc_tpu_torch.ops.fft import forward_spectrum
+        from fdc_tpu_torch.ops.framing import frame_blocks
+
+        blocks, hist = frame_blocks(x, carry["hist"], self.config.blocksize)
+        run, outs = self._steps._device_step(carry["run"],
+                                             forward_spectrum(blocks))
+        return ({"hist": hist, "run": run},
+                {f"seg{i}": o for i, o in enumerate(outs)})
+
+
+def drive(fdc, x):
+    """The whole capture through a path's streaming entry point: process +
+    flush, or the vcm path's stream. Returns (the whole batches' result,
+    the flush's result)."""
+    from fdc_tpu_torch import ProcessResult
+
+    if isinstance(fdc, VcmPath):
+        events, blocks = fdc.stream(x)
+        return (ProcessResult(events=events, blocks_processed=blocks),
+                ProcessResult())
+    return fdc.process(x), fdc.flush()
+
+
 def cuda_time(fn, iters):
     """Mean milliseconds per call of fn() with CUDA events, after one
     warm-up call."""
@@ -236,7 +384,8 @@ def wrappers():
             ("greedy_accept", detect, "greedy_accept_batch"),
             ("slot_lifecycle", lifecycle, "slot_lifecycle_multi"),
             ("powact", powact, "powact_flags"),
-            ("extract_static", extract_fused, "extract_static"))
+            ("extract_static", extract_fused, "extract_static"),
+            ("extract_shared_fold", extract_fused, "extract_shared_fold"))
 
 
 def counters():
@@ -256,6 +405,8 @@ KERNELS = {
                "fdc_tpu/ops/lifecycle_pallas.py:1319"),
     "extract_static": ("fdc_tpu_torch/csrc/extract_static.cu",
                        "fdc_tpu/ops/extract_pallas.py:62"),
+    "extract_shared_fold": ("fdc_tpu_torch/csrc/extract_shared.cu",
+                            "fdc_tpu/ops/extract_pallas.py:142"),
 }
 
 
@@ -394,10 +545,23 @@ def extract_work(spec, starts, mats, masks=None):
 
 def call_case(path, name, fn, plain, a, kw):
     """A kernel case from one recorded call of a path's step."""
-    if name in ("extract_shared", "extract_static"):
-        what, bytes_, flops, library, cmp = extract_work(*a, **kw)
-        return case(name, lambda: fn(*a, **kw), lambda: plain(*a, **kw),
-                    cmp, f"{path} {what}", bytes_, flops, library)
+    if name in ("extract_shared", "extract_static", "extract_shared_fold"):
+        # the fold's yardstick is the product alone, without the rotation
+        fold = name == "extract_shared_fold"
+        what, bytes_, flops, library, cmp = extract_work(
+            *(a[:3] if fold else a), **kw)
+        cs = case(name, lambda: fn(*a, **kw), lambda: plain(*a, **kw),
+                  cmp, f"{path} {what}", bytes_, flops, library)
+        if fold:
+            # the same bucket unfolded: kernel A, then apply_phase_pairs
+            from fdc_tpu_torch.ops import extract, extract_fused
+
+            spec, starts, mat, r = a
+            rows = extract._row_phases(starts, spec.shape[0], r)
+            cs["shape"] += f", fold R={r}"
+            cs["unfolded"] = lambda: extract.apply_phase_pairs(
+                extract_fused.extract_shared(spec, starts, mat), rows, r)
+        return cs
     out = plain(*a, **kw)
     if name == "greedy_accept":
         what = f"candidate rows {list(a[0].shape)}"
@@ -479,10 +643,37 @@ def event_kinds(events):
     return kinds, fins
 
 
+@contextlib.contextmanager
+def plan_tally(fdc):
+    """Count, over the steps run inside the block, the real (not
+    sentinel) rows the detection segments' plans ship in the narrow and
+    the wide bucket, and the largest ``ext_overflow``."""
+    tally = {"narrow": 0, "wide": 0, "overflow": 0}
+    segs = list(getattr(fdc, "segments", ()))
+    for sd in segs:
+        def plan(seg_state, flags, sd=sd, orig=sd.plan_outputs):
+            so = orig(seg_state, flags)
+            s = sd.max_slots
+            tally["wide"] += int((so["slot_ids"] < s).sum())
+            if "slot_ids_narrow" in so:
+                tally["narrow"] += int((so["slot_ids_narrow"] < s).sum())
+            tally["overflow"] = max(tally["overflow"],
+                                    int(so["ext_overflow"]))
+            return so
+        sd.plan_outputs = plan
+    try:
+        yield tally
+    finally:
+        for sd in segs:
+            del sd.plan_outputs
+
+
 def run_path(name, fdc, x, expect):
-    """Phase 3 for one path: process + flush with the launch counts
-    zeroed just before and read just after; checks that every kernel of
-    the path ran, blocks, finite events and the path's scripted events."""
+    """Phase 3 for one path: :func:`drive` with the launch counts zeroed
+    just before and read just after; checks that every kernel of the path
+    ran, blocks and finite events. Returns the whole batches' result,
+    the event kinds, the finished bursts per burst channel, the launches
+    and the detection plans' tally."""
     import torch
 
     cfg = fdc.config
@@ -490,8 +681,8 @@ def run_path(name, fdc, x, expect):
     for fn in cnt.values():
         fn.launches = 0
     t = time.perf_counter()
-    res = fdc.process(x)
-    fin = fdc.flush()
+    with plan_tally(fdc) as tally:
+        res, fin = drive(fdc, x)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {k: fn.launches for k, fn in cnt.items()}
@@ -507,21 +698,34 @@ def run_path(name, fdc, x, expect):
     kinds, chans = event_kinds(events)
     fins = sum(ev.finalized for ev in events)
     log(f"phase 3: {name}: {blocks} blocks in {wall:.2f} s (host clock); "
-        f"events {kinds}, {fins} finalized; launches {launches}")
-    return res, kinds, chans, launches
+        f"events {kinds}, {fins} finalized; launches {launches}"
+        + (f"; plans {tally}" if fdc.segments else ""))
+    return res, kinds, chans, launches, tally, fins
 
 
-def compare_cpu(name, fdc, x):
+def spectra_check(name, fdc, x, res):
+    """Phase 3 for configs 4 and 5: ``process_spectra`` on the same
+    channelizer, fed :func:`card_spectra` of the capture's whole batches:
+    the same events as ``process`` gave."""
+    spectra = card_spectra(fdc.config, x, fdc.device)
+    fdc.reset()
+    ev = fdc.process_spectra(np.concatenate(spectra)).events
+    compare_events(ev, res.events, f"{name} process_spectra")
+    fdc.flush()
+    fdc.reset()
+    log(f"phase 3: {name}: process_spectra on the card's spectra of "
+        f"{len(spectra)} batches: {len(ev)} events, equal to process()")
+
+
+def compare_cpu(name, make, x):
     """Phase 4 for one path: two steps and two batches' events, card
     against the CPU plain path."""
     import torch
 
-    cfg = fdc.config
-    dev = fdc.device
-    cpu = type(fdc)(cfg, device="cpu")
-    gpu = type(fdc)(cfg, device=dev)
+    cpu, gpu = make("cpu"), make("cuda")
+    cfg, dev = gpu.config, gpu.device
     cc, gc = cpu._device_init(), gpu._device_init()
-    bs = fdc.batch_samples
+    bs = gpu.batch_samples
     worst = 0.0
     for step in range(2):
         chunk = torch.from_numpy(x[step * bs:(step + 1) * bs])
@@ -529,8 +733,8 @@ def compare_cpu(name, fdc, x):
         gc, go = gpu._device_step(gc, chunk.to(dev), step * cfg.batch_blocks)
         worst = max(worst, compare_outputs(go, co, f"{name} step {step}"))
         compare_outputs(gc, cc, f"{name} carry after step {step}")
-    ev_c = cpu.process(x[:2 * bs]).events + cpu.flush().events
-    ev_g = gpu.process(x[:2 * bs]).events + gpu.flush().events
+    ev_c, ev_g = ([e for r in drive(f, x[:2 * bs]) for e in r.events]
+                  for f in (cpu, gpu))
     compare_events(ev_g, ev_c, f"{name} events")
     log(f"phase 4: {name}: 2 steps card == cpu plain (max abs err "
         f"{worst:.3g}), {len(ev_g)} events identical")
@@ -587,6 +791,97 @@ def time_step(name, fdc, x, card, top=8):
         log(f"  {us / 1e3 / n_steps:.4f} ms/step  {kname[:110]}")
 
 
+def channelizer(cfg):
+    """A maker of the path's channelizer on a device."""
+    def make(device):
+        from fdc_tpu_torch import FrequencyDomainChannelizer
+
+        return FrequencyDomainChannelizer(cfg, device=device)
+    return make
+
+
+def path_table():
+    """(name, maker, capture, kernels it must launch) of every path; a
+    capture maps (channelizer, samples) to (samples, scripted detection
+    carriers or None)."""
+    from fdc_tpu_torch.flagship import (
+        _flagship,
+        cfg2_dama16,
+        cfg4_segdet,
+        cfg5_burst_hunter512,
+        cfg5b_burst_hunter_4seg,
+        powact32,
+        reference_example,
+    )
+
+    def on_config(capture):
+        return lambda fdc, n: (capture(fdc.config, n), None)
+
+    detection = ("greedy_accept", "slot_lifecycle")
+    return (
+        ("flagship", channelizer(_flagship(batch_blocks=512)),
+         on_config(scripted_capture),
+         ("extract_shared", "greedy_accept", "slot_lifecycle")),
+        ("example", channelizer(reference_example()),
+         on_config(burst_capture),
+         ("extract_static", "extract_shared", "greedy_accept",
+          "slot_lifecycle")),
+        ("powact32", channelizer(powact32()), on_config(burst_capture),
+         ("powact", "extract_shared")),
+        ("dama16", channelizer(cfg2_dama16()), on_config(burst_capture),
+         ("extract_shared_fold",)),
+        ("segdet", channelizer(cfg4_segdet()), carrier_capture, detection),
+        ("hunter512", channelizer(cfg5_burst_hunter512()), carrier_capture,
+         detection),
+        ("hunter4seg", channelizer(cfg5b_burst_hunter_4seg()),
+         carrier_capture, detection),
+        ("vcm4seg", lambda device: VcmPath(cfg5b_burst_hunter_4seg(),
+                                           device),
+         carrier_capture, detection),
+    )
+
+
+def check_path(name, p, res, kinds, chans, tally, fins):
+    """Phase 3's checks of what each path's capture scripted."""
+    fdc = p["fdc"]
+    cfg = fdc.config
+    if name == "flagship":
+        chan, amp, snr = tone_check(res, fdc, TONE_BIN)
+        assert abs(amp - 1.0) < 0.05 and snr > 25.0, (amp, snr)
+        assert kinds.get("PowActChan", 0) >= 1
+        assert kinds.get("DETECTED", 0) >= 3
+        log(f"phase 3: flagship tone in channel {chan}: amp {amp:.4f}, "
+            f"SNR {snr:.1f} dB")
+        return
+    if p["carriers"] is not None:
+        # every scripted carrier finished as a detection; both buckets
+        # shipped real slots, and config 4's budgets overflowed
+        assert fins >= p["carriers"], (name, fins, p["carriers"])
+        assert tally["narrow"] > 0 and tally["wide"] > 0, (name, tally)
+        if name == "segdet":
+            assert tally["overflow"] > 0, (name, tally)
+        log(f"phase 3: {name}: {fins} finished detections of "
+            f"{p['carriers']} scripted carriers")
+        return
+    n_pa = len(cfg.activity_controlled_channels)
+    # each burst channel's one scripted carrier, and nothing else
+    assert chans == {c: 1 for c in range(n_pa)}, (name, chans)
+    if cfg.activity_detection_segments:
+        assert kinds.get("DETECTED", 0) >= 3, (name, kinds)
+    tones = []
+    for f, _ in cfg.throughput_channels:
+        chan, amp, snr = tone_check(
+            res, fdc, round(f * cfg.blocksize),
+            from_block=int((GATES_END + 0.2) * cfg.batch_blocks))
+        assert abs(amp - BURST_TONE) < 0.05 * BURST_TONE and snr > 25.0, (
+            name, chan, amp, snr)
+        tones.append((amp, snr))
+    if tones:
+        amps, snrs = zip(*tones)
+        log(f"phase 3: {name} tones in {len(tones)} channels: amp "
+            f"{min(amps):.4f}-{max(amps):.4f}, SNR >= {min(snrs):.1f} dB")
+
+
 def main() -> int:
     import torch
 
@@ -594,10 +889,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device (this check runs only on the "
               "card)", file=sys.stderr)
         return 1
-    from fdc_tpu_torch import FrequencyDomainChannelizer, kernels
-    from fdc_tpu_torch.flagship import _flagship, powact32, reference_example
+    from fdc_tpu_torch import kernels
 
     # -- phase 1: the card and the build ----------------------------------
+    t_run = t_phase = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -615,28 +910,29 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log("  ptxas:", line.strip())
 
-    dev = torch.device("cuda")
-    paths = {}  # name: (fdc, capture, kernels the path must launch)
-    for name, cfg, capture, expect in (
-        ("flagship", _flagship(batch_blocks=512), scripted_capture,
-         ("extract_shared", "greedy_accept", "slot_lifecycle")),
-        ("example", reference_example(), burst_capture,
-         ("extract_static", "extract_shared", "greedy_accept",
-          "slot_lifecycle")),
-        ("powact32", powact32(), burst_capture,
-         ("powact", "extract_shared")),
-    ):
-        fdc = FrequencyDomainChannelizer(cfg, device=dev)
+    def phase_done(n):
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"phase {n}: {now - t_phase:.1f} s wall")
+        t_phase = now
+
+    paths = {}
+    for name, make, capture, expect in path_table():
+        fdc = make("cuda")
+        cfg = fdc.config
         n_samples = N_BATCHES * fdc.batch_samples + 7 * cfg.inplen + 1234
-        paths[name] = (fdc, capture(cfg, n_samples), expect)
+        x, carriers = capture(fdc, n_samples)
+        paths[name] = dict(fdc=fdc, x=x, carriers=carriers, make=make,
+                           expect=expect)
+    phase_done(1)
 
     # -- phase 2: kernels against their plain versions --------------------
     # every kernel call of each path's step, replayed on the same inputs,
     # and kernel D on the init / floor edges
     cases = [call_case(name, *call)
-             for name, (fdc, x, _) in paths.items()
-             for call in step_calls(fdc, x)]
-    cases.append(powact_edge_case(paths["powact32"][0]))
+             for name, p in paths.items()
+             for call in step_calls(p["fdc"], p["x"])]
+    cases.append(powact_edge_case(paths["powact32"]["fdc"]))
     summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                    "bound_ms": 0.0, "bound_by": "bytes", "bound_max": 0.0,
                    "library_ms": 0.0, "has_library": True}
@@ -657,43 +953,28 @@ def main() -> int:
         log(f"phase 2: {cs['name']} {cs['shape']}: matches plain, max abs "
             f"err {err:.3g}; bound {cs['bound_ms'] * 1e3:.2f} us "
             f"({cs['bytes'] / 1e6:.3f} MB, {cs['flops'] / 1e9:.4f} GFLOP)")
+    phase_done(2)
 
     # -- phase 3: each path on the card -----------------------------------
     launches = {k: 0 for k in KERNELS}
-    for name, (fdc, x, expect) in paths.items():
-        res, kinds, chans, got = run_path(name, fdc, x, expect)
+    for name, p in paths.items():
+        res, kinds, chans, got, tally, fins = run_path(
+            name, p["fdc"], p["x"], p["expect"])
         for k, n in got.items():
             launches[k] += n
-        if name == "flagship":
-            chan, amp, snr = tone_check(res, fdc, TONE_BIN)
-            assert abs(amp - 1.0) < 0.05 and snr > 25.0, (amp, snr)
-            assert kinds.get("PowActChan", 0) >= 1
-            assert kinds.get("DETECTED", 0) >= 3
-            log(f"phase 3: flagship tone in channel {chan}: amp {amp:.4f}, "
-                f"SNR {snr:.1f} dB")
-            continue
-        cfg = fdc.config
-        n_pa = len(cfg.activity_controlled_channels)
-        # each burst channel's one scripted carrier, and nothing else
-        assert chans == {c: 1 for c in range(n_pa)}, (name, chans)
-        if cfg.activity_detection_segments:
-            assert kinds.get("DETECTED", 0) >= 3, (name, kinds)
-        for f, _ in cfg.throughput_channels:
-            chan, amp, snr = tone_check(
-                res, fdc, round(f * cfg.blocksize),
-                from_block=int((GATES_END + 0.2) * cfg.batch_blocks))
-            assert abs(amp - BURST_TONE) < 0.05 * BURST_TONE and snr > 25.0, (
-                name, chan, amp, snr)
-            log(f"phase 3: {name} tone in channel {chan}: amp {amp:.4f}, "
-                f"SNR {snr:.1f} dB")
+        check_path(name, p, res, kinds, chans, tally, fins)
+        if name in ("segdet", "hunter512"):
+            spectra_check(name, p["fdc"], p["x"], res)
+    phase_done(3)
 
     # -- phase 4: plain versions on the CPU, same captures -----------------
-    for name, (fdc, x, _) in paths.items():
-        compare_cpu(name, fdc, x)
+    for name, p in paths.items():
+        compare_cpu(name, p["make"], p["x"])
+    phase_done(4)
 
     # -- phase 5: timing ---------------------------------------------------
-    for name, (fdc, x, _) in paths.items():
-        time_step(name, fdc, x, card)
+    for name, p in paths.items():
+        time_step(name, p["fdc"], p["x"], card)
     for cs in cases:
         slow = cs["name"] in ("slot_lifecycle", "powact")
         k_ms = cuda_time(cs["kern"], 50)
@@ -708,9 +989,14 @@ def main() -> int:
             l_ms = cuda_time(cs["library"], 50)
             ent["library_ms"] += l_ms
             lib = f", library {l_ms:.4f} ms"
+        if "unfolded" in cs:
+            lib += (f", unfolded A + apply_phase_pairs "
+                    f"{cuda_time(cs['unfolded'], 50):.4f} ms")
         log(f"phase 5: {cs['name']} {cs['shape']}: kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms{lib}, bound {cs['bound_ms']:.5f} ms "
             f"{card}")
+    phase_done(5)
+    log(f"total: {time.perf_counter() - t_run:.1f} s wall")
 
     rows = []
     for name, (src, replaces) in KERNELS.items():

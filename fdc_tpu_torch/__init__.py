@@ -7,13 +7,15 @@ hold it against.
 
 Covered: overlap-save framing, the FFT front-end, throughput channels,
 power-activated burst banks with or without detection segments, the
-fused throughput + burst buckets, segment detection with compacted slot
-extraction, and the host ``process`` / ``flush`` loop with the Python
-emitters — the flagship, the upstream example and BASELINE config 3
-(``flagship.py``). Kernels (``csrc/``, built with nvcc on first use on a
-CUDA device):
+fused throughput + burst buckets, segment detection with compacted and
+two-tier slot extraction, the host ``process`` / ``process_spectra`` /
+``flush`` loop with the Python emitters, and the multi-segment vcm
+detector (``ActivityDetectionChannelizer``) — the flagship, the upstream
+example and every BASELINE configuration (``flagship.py``). Kernels
+(``csrc/``, built with nvcc on first use on a CUDA device):
 
-- A ``extract_shared.cu``: shared-matrix bucket extraction + power measures;
+- A ``extract_shared.cu``: shared-matrix bucket extraction + power
+  measures, and the quarter-turn phase fold of throughput buckets;
 - B ``greedy_accept.cu``: greedy candidate acceptance;
 - C ``lifecycle.cu``: slot lifecycles + the burst hysteresis chain;
 - D ``powact.cu``: the burst hysteresis chain of a bank without segments;
@@ -21,6 +23,9 @@ CUDA device):
 """
 
 from fdc_tpu_torch.config import ChannelizerConfig
+from fdc_tpu_torch.models.activity_detection import (
+    ActivityDetectionChannelizer,
+)
 from fdc_tpu_torch.models.channelizer import (
     FrequencyDomainChannelizer,
     ProcessResult,
@@ -28,5 +33,5 @@ from fdc_tpu_torch.models.channelizer import (
 
 __version__ = "0.1.0"
 
-__all__ = ["ChannelizerConfig", "FrequencyDomainChannelizer",
-           "ProcessResult"]
+__all__ = ["ActivityDetectionChannelizer", "ChannelizerConfig",
+           "FrequencyDomainChannelizer", "ProcessResult"]

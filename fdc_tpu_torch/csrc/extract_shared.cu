@@ -1,7 +1,8 @@
 // Shared-matrix bucket extraction with optional power measures.
 //
 // Replaces the Pallas kernels fdc_tpu/ops/extract_pallas.py
-// _kernel_shared_measured and _kernel_shared (fused_extract_shared).
+// _kernel_shared_measured and _kernel_shared (fused_extract_shared),
+// including _kernel_shared's fold_phase_r branch (extract_pallas.py:142-172).
 //
 // What it computes, for C static bin slices of width l starting at
 // starts[c] in the [R, N] complex64 spectrum:
@@ -35,6 +36,14 @@
 // the burst bucket's 256 x 192 matrix never need to fit in shared memory
 // whole: they stream through it tile by tile. wgmma/TMA pipelines are
 // later work.
+//
+// The phase fold (fold_r = R in {2, 4}; 0 or 1 = none): the overlap-save
+// phase compensation of a throughput bucket whose row 0 has a global
+// block index that is a multiple of R. Every factor is a quarter turn, so
+// the GEMM's store epilogue applies it as a pair swap between neighbouring
+// lanes (__shfl_xor_sync) and a sign (tile_gemm.cuh, FOLD_R): no extra
+// pass over the [C, R, 2k] output and no cos/sin round-off. It adds a few
+// register operations per output float to a kernel bound by its FFMAs.
 
 #include <cuda_runtime.h>
 
@@ -63,20 +72,37 @@ __global__ void sum_splits(const float* __restrict__ part, int splits,
 // spec: complex64 [rows, n]; starts: int32 [c] (device); mat: float32
 // [k2, nout] (rows interleaved re/im); out: float32 [c, rows, nout].
 // masks (nullable): float32 [n, cm]; partial: float32 [splits, rows, cm]
-// scratch; powers: float32 [rows, cm].
+// scratch; powers: float32 [rows, cm]. fold_r: the quarter-turn phase
+// fold's R (0 or 1: none; 2 or 4; anything else is refused).
 extern "C" int fdc_extract_shared(
     const void* spec, int rows, int n, const void* starts, int c,
     const void* mat, int k2, int nout, void* out,
     const void* masks, int cm, void* partial, int splits, void* powers,
-    void* stream) {
+    int fold_r, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sp = static_cast<const float*>(spec);
+  const int* s = static_cast<const int*>(starts);
+  const float* b = static_cast<const float*>(mat);
+  float* o = static_cast<float*>(out);
   const int m = c * rows;
   dim3 grid((m + BM - 1) / BM, (nout + BN - 1) / BN, 1);
-  tile_gemm<0><<<grid, NT, 0, st>>>(
-      sp, rows, n, static_cast<const int*>(starts),
-      static_cast<const float*>(mat), k2, nout, m, k2,
-      static_cast<float*>(out));
+  switch (fold_r) {
+    case 0:
+    case 1:
+      tile_gemm<0><<<grid, NT, 0, st>>>(sp, rows, n, s, b, k2, nout, m, k2,
+                                         o);
+      break;
+    case 2:
+      tile_gemm<0, 2><<<grid, NT, 0, st>>>(sp, rows, n, s, b, k2, nout, m,
+                                            k2, o);
+      break;
+    case 4:
+      tile_gemm<0, 4><<<grid, NT, 0, st>>>(sp, rows, n, s, b, k2, nout, m,
+                                            k2, o);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (masks != nullptr) {
     const int chunk = ((n + splits - 1) / splits + BK - 1) / BK * BK;
     dim3 g2((rows + BM - 1) / BM, (cm + BN - 1) / BN, splits);

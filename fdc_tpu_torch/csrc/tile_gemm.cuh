@@ -16,6 +16,17 @@
 // 64x64 output tiles, BK=16 k-steps staged in shared memory, a 4x4
 // micro-tile per thread (256 threads); rows past M and columns past Nout
 // are masked. fp32 FFMA throughout (no TF32: ~40 dB of output SNR).
+//
+// FOLD_R (MODE 0 only; 0 = off, the default, so the other modes and
+// extract_static.cu compile exactly as without it): the store epilogue
+// rotates every output pair of row g = c * R + r by the quarter turns
+// q = ((r % FOLD_R) * (starts[c] % FOLD_R)) % FOLD_R * (4 / FOLD_R), the
+// overlap-save phase e^{j 2 pi ((r * s_c) % FOLD_R) / FOLD_R} when the
+// global index of row 0 is a multiple of FOLD_R (FOLD_R in {2, 4}). A
+// thread's columns are tx + 16 j, so the two floats of a pair (2i, 2i+1)
+// sit in the neighbouring lanes tx, tx ^ 1 of one warp: one
+// __shfl_xor_sync swaps them, and the rotation is a select and a negation
+// (exact, no trigonometry).
 
 #pragma once
 
@@ -28,7 +39,7 @@ constexpr int BN = 64;
 constexpr int BK = 16;
 constexpr int NT = 256;
 
-template <int MODE>
+template <int MODE, int FOLD_R = 0>
 __global__ void __launch_bounds__(NT) tile_gemm(
     const float* __restrict__ spec, int R, int N,
     const int* __restrict__ starts,
@@ -111,6 +122,27 @@ __global__ void __launch_bounds__(NT) tile_gemm(
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
+  }
+
+  static_assert(FOLD_R == 0 || (MODE == 0 && (FOLD_R == 2 || FOLD_R == 4)),
+                "the quarter-turn fold is a MODE 0 epilogue, R in {2, 4}");
+  if constexpr (FOLD_R > 1) {
+    // every lane shuffles, before the row and column masks below
+    const float sgn = (tx & 1) ? 1.0f : -1.0f;  // j (re, im) = (-im, re)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int g = m0 + ty + 16 * i;
+      const int c = g < M ? g / R : 0;
+      const int r = g - c * R;
+      const int q =
+          ((r % FOLD_R) * (starts[c] % FOLD_R)) % FOLD_R * (4 / FOLD_R);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float v = acc[i][j];
+        const float p = __shfl_xor_sync(0xffffffffu, v, 1);
+        acc[i][j] = q == 0 ? v : q == 1 ? sgn * p : q == 2 ? -v : -sgn * p;
+      }
+    }
   }
 
   float* o = out + static_cast<size_t>(blockIdx.z) * M * Nout;

@@ -41,7 +41,7 @@ _F = ctypes.c_float
 # C signatures of the entry points (csrc/*.cu)
 _SIGNATURES = {
     "fdc_extract_shared": [_P, _I, _I, _P, _I, _P, _I, _I, _P,
-                           _P, _I, _P, _I, _P, _P],
+                           _P, _I, _P, _I, _P, _I, _P],
     "fdc_extract_static": [_P, _I, _I, _P, _I, _P, _I, _I, _P, _P],
     "fdc_greedy_accept": [_P, _P, _P, _P, _I, _I, _P],
     "fdc_slot_lifecycle": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,

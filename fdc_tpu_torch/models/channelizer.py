@@ -8,7 +8,9 @@ geometry and registers the constant tables as buffers on ``device``; the
 step ``(carry, samples, t0) -> (carry, outputs)`` processes
 ``batch_blocks`` FFT blocks at a time through the hand-written kernels,
 and the host loop (``process`` / ``flush``) buffers samples
-into batches and runs the emission layer.
+into batches and runs the emission layer. ``process_spectra`` is the
+pre-FFT'd entry point (the reference's vector-input mode): it feeds
+normalized fftshifted spectra past the framing and the FFT.
 
 The carry is a plain dict of tensors with the JAX package's keys
 (``hist``, ``prev_spec``, ``powact``, ``seg{i}``) and the step outputs
@@ -92,8 +94,6 @@ def _check_slice(cfg: ChannelizerConfig) -> None:
     missing = []
     if cfg.segment_splits:
         missing.append("segment_splits (split reconciliation)")
-    if cfg.extract_width_split:
-        missing.append("extract_width_split (two-tier slot extraction)")
     if cfg.native_emission is True:
         missing.append("native_emission=True (the C++ emitters)")
     if not cfg.use_mxu_fft:
@@ -121,9 +121,10 @@ class FrequencyDomainChannelizer(nn.Module):
 
     ``device`` is required (no implicit default): ``"cuda"`` runs the
     hand-written kernels, ``"cpu"`` their plain PyTorch versions. Use
-    ``process(samples)`` / ``flush()`` for the buffered streaming API, or
-    drive ``_device_step`` directly. Constructing one sets
-    ``torch.backends.cuda.matmul.allow_tf32`` and
+    ``process(samples)`` / ``flush()`` for the buffered streaming API
+    (or ``process_spectra(spectra)`` / ``flush()`` on pre-FFT'd spectra;
+    one entry point per stream), or drive ``_device_step`` directly.
+    Constructing one sets ``torch.backends.cuda.matmul.allow_tf32`` and
     ``torch.backends.cudnn.allow_tf32`` to False process-wide: TF32 would
     cost ~40 dB of extraction SNR (the reference keeps fp32).
     """
@@ -189,6 +190,8 @@ class FrequencyDomainChannelizer(nn.Module):
                 if cfg.act_det_deactivation_delay >= 0 else 0,
                 cfg.max_slots, cfg.max_candidates, cfg.max_extract_width,
                 extract_budget=cfg.extract_budget,
+                extract_width_split=cfg.extract_width_split,
+                extract_budget_narrow=cfg.extract_budget_narrow,
             )
             for i, (a, b) in enumerate(cfg.fdc_activity_detection_segments())
         )
@@ -281,6 +284,11 @@ class FrequencyDomainChannelizer(nn.Module):
         self._carry = None
         self._t0 = 0  # global index of next block
         self._pending = np.zeros(0, np.complex64)  # host sample buffer
+        # pre-FFT'd mode: buffered spectrum rows, and which entry point
+        # drives this stream (flush feeds silence in its flavor)
+        self._pending_spec = np.zeros((0, cfg.blocksize), np.complex64)
+        self._spectra_mode = False
+        self._samples_mode = False
         self.to(self.device)
 
         if cfg.verbose:
@@ -320,6 +328,17 @@ class FrequencyDomainChannelizer(nn.Module):
         spec = forward_spectrum(blocks)  # [B, N]
         new_carry = dict(carry)
         new_carry["hist"] = hist
+        return self._step_from_spec(new_carry, spec, t0)
+
+    def _device_step_spectra(self, carry, spec: torch.Tensor, t0: int):
+        """Pre-FFT'd step (the reference's vector-input mode, reference:
+        python/FrequencyDomainChannelizer.py:201-216): spec is [B, N]
+        complex64, already normalized fftshifted spectra; the framing
+        history is left as it is."""
+        return self._step_from_spec(dict(carry), spec, t0)
+
+    def _step_from_spec(self, new_carry, spec, t0):
+        cfg = self.config
         spec_ext = torch.cat([new_carry["prev_spec"][None], spec])
         new_carry["prev_spec"] = spec[-1].clone()
 
@@ -438,30 +457,9 @@ class FrequencyDomainChannelizer(nn.Module):
         for i, sd in enumerate(self.segments):
             seg_state, flags = seg_scans[i]
             carry_io[f"seg{i}"] = seg_state
-            scans["segs"].append(
-                (seg_state, self._seg_scan_outputs(sd, seg_state, flags))
-            )
+            scans["segs"].append((seg_state, sd.plan_outputs(seg_state,
+                                                             flags)))
         return scans
-
-    @staticmethod
-    def _seg_scan_outputs(sd, seg_state, flags):
-        """One segment's scan-stage outputs: flags in host layout [S, B],
-        the slot_meta snapshot and the compaction plan."""
-        got, processed, emit_now, phase_used = flags
-        slot_ids, overflow = sd.extract_plan(got, processed)
-        return {
-            "activated": got.T,
-            "processed": processed.T,
-            "emit": emit_now.T,
-            "phase_used": phase_used.T,
-            "slot_meta": {
-                "ext_start": seg_state["ext_start"],
-                "wlog2": seg_state["wlog2"],
-                "order": seg_state["order"],
-            },
-            "slot_ids": slot_ids,
-            "ext_overflow": overflow,
-        }
 
     def _finish_detections(self, out, scans, spec_ext, pa_ext, seg_powers):
         """Assemble the detection outputs, extracting the planned slots."""
@@ -478,8 +476,7 @@ class FrequencyDomainChannelizer(nn.Module):
             zip(scans["segs"], self.segments, seg_powers)
         ):
             so = dict(so)
-            so["extract"] = sd.extract_slots(spec_ext, seg_state,
-                                             so["slot_ids"])
+            so.update(sd.extract_planned(spec_ext, seg_state, so))
             so["power"] = power
             out[f"seg{i}"] = so
 
@@ -507,11 +504,22 @@ class FrequencyDomainChannelizer(nn.Module):
         self._carry = None
         self._t0 = 0
         self._pending = np.zeros(0, np.complex64)
+        self._pending_spec = np.zeros((0, self.config.blocksize),
+                                      np.complex64)
+        self._spectra_mode = False
+        self._samples_mode = False
 
     def process(self, samples: np.ndarray) -> ProcessResult:
         """Buffered streaming entry point: any-length complex64 sample
         arrays; whole batches are processed, the remainder is buffered."""
         cfg = self.config
+        if self._spectra_mode:
+            raise RuntimeError(
+                "process() called on a stream already driven by "
+                "process_spectra(); use one entry point per stream "
+                "(reset() starts a new one)"
+            )
+        self._samples_mode = True
         if self._carry is None:
             self._carry = self._device_init()
         x = np.concatenate([self._pending, np.asarray(samples, np.complex64)])
@@ -538,16 +546,24 @@ class FrequencyDomainChannelizer(nn.Module):
         then does not depend on the capture length mod batch_blocks."""
         cfg = self.config
         n_pend = len(self._pending)
-        if n_pend == 0:
+        n_pend_spec = len(self._pending_spec)
+        if n_pend == 0 and n_pend_spec == 0:
             res = self._new_result()
             if cfg.debug:
                 res.debug_spectrum = np.zeros((0, cfg.blocksize),
                                               np.complex64)
         else:
-            n_real = -(-n_pend // cfg.inplen)  # blocks with real samples
-            res = self.process(
-                np.zeros(self.batch_samples - n_pend, np.complex64)
-            )
+            if n_pend_spec:
+                # spectra mode: pad the buffered rows with silent rows
+                n_real = n_pend_spec
+                res = self.process_spectra(np.zeros(
+                    (cfg.batch_blocks - n_pend_spec, cfg.blocksize),
+                    np.complex64))
+            else:
+                n_real = -(-n_pend // cfg.inplen)  # blocks w/ real samples
+                res = self.process(
+                    np.zeros(self.batch_samples - n_pend, np.complex64)
+                )
             if self.throughput:
                 for bucket in self.throughput.buckets:
                     for chan in bucket.channel_ids:
@@ -566,7 +582,12 @@ class FrequencyDomainChannelizer(nn.Module):
         return res
 
     def _feed_silence(self) -> ProcessResult:
-        """One whole batch of end-of-stream silence."""
+        """One whole batch of end-of-stream silence, in the flavor of the
+        stream's entry point (zero samples, or zero spectrum rows)."""
+        cfg = self.config
+        if self._spectra_mode:
+            return self.process_spectra(
+                np.zeros((cfg.batch_blocks, cfg.blocksize), np.complex64))
         return self.process(np.zeros(self.batch_samples, np.complex64))
 
     def _finalize_rounds(self) -> int:
@@ -585,6 +606,47 @@ class FrequencyDomainChannelizer(nn.Module):
             bool(c[f"seg{i}"]["active"].any())
             for i in range(len(self.segments))
         )
+
+    def process_spectra(self, spectra: np.ndarray) -> ProcessResult:
+        """Pre-FFT'd streaming entry point (the reference's vector-input
+        mode, reference: python/FrequencyDomainChannelizer.py:201-216):
+        [B, blocksize] normalized fftshifted complex spectra, any B; whole
+        batches are processed, the row remainder is buffered. The framing
+        front end is bypassed, so a stream uses this or :meth:`process`,
+        not both; :meth:`flush` pads a buffered remainder with silent
+        rows."""
+        cfg = self.config
+        if self._samples_mode:
+            raise RuntimeError(
+                "process_spectra() called on a stream already driven by "
+                "process(); use one entry point per stream (reset() "
+                "starts a new one)"
+            )
+        spectra = np.ascontiguousarray(spectra, np.complex64)
+        if spectra.ndim != 2 or spectra.shape[1] != cfg.blocksize:
+            raise ValueError(
+                f"spectra must be [B, {cfg.blocksize}], got {spectra.shape}"
+            )
+        if self._carry is None:
+            self._carry = self._device_init()
+        self._spectra_mode = True
+        spectra = np.concatenate([self._pending_spec, spectra])
+        bb = cfg.batch_blocks
+        n_batches = spectra.shape[0] // bb
+        self._pending_spec = spectra[n_batches * bb:]
+        result = self._new_result()
+        dbg = []
+        for i in range(n_batches):
+            chunk = torch.from_numpy(spectra[i * bb:(i + 1) * bb]).to(
+                self.device)
+            self._carry, out = self._device_step_spectra(self._carry, chunk,
+                                                         self._t0)
+            self._consume_outputs(out, result, dbg)
+            self._t0 += bb
+            result.blocks_processed += bb
+        if dbg:
+            result.debug_spectrum = np.concatenate(dbg)
+        return result
 
     def _consume_outputs(self, out, result: ProcessResult, dbg: list):
         t0 = self._t0
@@ -605,6 +667,8 @@ class FrequencyDomainChannelizer(nn.Module):
         for i in range(len(self.segments)):
             so = _to_host(out[f"seg{i}"])
             so["extract"] = _pairs_to_complex(so["extract"])
+            if "extract_narrow" in so:
+                so["extract_narrow"] = _pairs_to_complex(so["extract_narrow"])
             result.events.extend(
                 self.segment_emitters[i].process_step(so, so["slot_meta"],
                                                       t0)

@@ -13,6 +13,12 @@ Slots are allocated monotonically within a step and freed on device at
 step end after the host emitters consumed the retired ones; slot
 exhaustion drops new channels with a counter (reference:
 lib/SegmentDetection_impl.cc:298-308).
+
+Two-tier extraction (``extract_width_split``): slots whose width fits the
+split ship from a second, narrower [E_narrow, B+1, W_split] bucket; wide
+slots and narrow overflow ship from the w_cap bucket. With ``vcm`` the
+detector follows the multi-segment block's conventions
+(``models.activity_detection``).
 """
 
 from __future__ import annotations
@@ -41,8 +47,10 @@ class SegmentDetector(nn.Module):
     """One detection segment with an S-slot dynamic channel table.
 
     Buffers: ``window_table`` [log2(w_cap)+1, w_cap] (phase-0 flank window
-    of every power-of-2 width, zero-padded) and ``idft`` [2 w_cap, 2 w_cap]
-    (the slot transform, rows interleaved)."""
+    of every power-of-2 width, zero-padded), ``idft`` [2 w_cap, 2 w_cap]
+    (the slot transform, rows interleaved) and, with
+    ``extract_width_split``, ``idft_narrow`` (the same at the split
+    width)."""
 
     def __init__(
         self,
@@ -59,6 +67,10 @@ class SegmentDetector(nn.Module):
         max_candidates: int = 0,
         max_extract_width: int = 0,
         extract_budget: int = 0,
+        geometry: SegmentGeometry = None,
+        vcm: bool = False,
+        extract_width_split: int = 0,
+        extract_budget_narrow: int = 0,
     ):
         super().__init__()
         if thresh_db < 0.0:
@@ -78,12 +90,34 @@ class SegmentDetector(nn.Module):
         self.extract_budget = min(
             int(extract_budget) or self.max_slots, self.max_slots
         )
+        # optional narrower second bucket (never more rows than slots)
+        self.extract_width_split = int(extract_width_split)
+        self.extract_budget_narrow = min(
+            int(extract_budget_narrow), self.max_slots
+        )
+        if self.extract_width_split:
+            w = self.extract_width_split
+            if w & (w - 1) or not 0 < w < (int(max_extract_width) or blocksize):
+                raise ValueError(
+                    "extract_width_split must be a power of 2 below "
+                    "max_extract_width"
+                )
+            if self.extract_budget_narrow <= 0:
+                raise ValueError(
+                    "extract_width_split requires extract_budget_narrow > 0"
+                )
+            self.split_log2 = int(math.log2(w))
+        # the multi-segment block's semantics: 1/decimation power
+        # normalization and FLT_MIN zero-denominator edge ratios
+        # (reference: lib/activity_detection_channelizer_vcm_impl.cc:630-650,
+        # 701-705)
+        self.vcm = bool(vcm)
         self.w_cap = int(max_extract_width) or blocksize
         if self.w_cap & (self.w_cap - 1):
             raise ValueError("max_extract_width must be a power of 2")
         self.w_cap = min(self.w_cap, blocksize)
         self.w_cap_log2 = int(math.log2(self.w_cap))
-        self.geometry: SegmentGeometry = solve_segment(
+        self.geometry: SegmentGeometry = geometry or solve_segment(
             blocksize, seg_start, seg_stop, minchandist
         )
         # K for edge detection (0 = exact: every ratio position) vs K of
@@ -106,9 +140,14 @@ class SegmentDetector(nn.Module):
                 w, relinvovl, self.flank_puffer
             )[0].real
         self.register_buffer("window_table", torch.from_numpy(table))
-        self.register_buffer("idft", torch.from_numpy(interleave_rows(
-            _rr_idft_matrix(self.w_cap, 0, False, 1.0, pairs=True)
-        )))
+        # the slot transform of each bucket width
+        self._idft_of = {self.w_cap: "idft"}
+        if self.extract_width_split:
+            self._idft_of[self.extract_width_split] = "idft_narrow"
+        for w, name in self._idft_of.items():
+            self.register_buffer(name, torch.from_numpy(interleave_rows(
+                _rr_idft_matrix(w, 0, False, 1.0, pairs=True)
+            )))
 
     # -- state ----------------------------------------------------------------
 
@@ -131,7 +170,10 @@ class SegmentDetector(nn.Module):
         """[B, N] |X|^2 -> [B, n_cells] decimated segment power
         (reference: lib/SegmentDetection_impl.cc:178-193)."""
         g = self.geometry
-        return cell_power(sq, g.start, g.n_cells, g.decimation)
+        p = cell_power(sq, g.start, g.n_cells, g.decimation)
+        if self.vcm:
+            p = p * float(np.float32(1.0 / g.decimation))
+        return p
 
     def _packed_candidates(self, power: torch.Tensor) -> torch.Tensor:
         """[B, n_cells] powers -> [B, 7K] candidate pack (K = k_pack):
@@ -140,7 +182,7 @@ class SegmentDetector(nn.Module):
         order, empty columns 0 before the bin conversion."""
         g = self.geometry
         cand_s, cand_e, cand_v = detect_candidates_batch(
-            power, self.thresh, self.k_detect
+            power, self.thresh, self.k_detect, zero_floor=self.vcm
         )  # [B, K_detect], cell coords
         b = power.shape[0]
         kp = self.k_pack
@@ -186,14 +228,89 @@ class SegmentDetector(nn.Module):
         overflow = torch.clamp(n_need - e, min=0).to(torch.int32)
         return ids[:e], overflow
 
-    def extract_slots(self, spec_ext: torch.Tensor, state, slot_ids):
+    def extract_plan_split(self, got, processed, wlog2_state):
+        """Two-bucket compaction plan (``extract_width_split``): needy
+        slots that fit the narrow bucket fill it first, in slot order; the
+        remaining needy slots (wide ones and narrow overflow) fill the
+        wide bucket. Unfilled rows hold the sentinel S (they extract zeros
+        and the emitters skip them). Returns (ids_narrow [E_n], ids_wide
+        [E_w], overflow int32: needy slots in neither bucket)."""
+        s = self.max_slots
+        dev = got.device
+        need = torch.any(got | processed, dim=0)  # [S]
+        slots = torch.arange(s, dtype=torch.int32, device=dev)
+
+        def pick(mask, budget):
+            rank = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+            chosen = mask & (rank < budget)
+            # row `budget` is a discard row for the slots not chosen
+            ids = torch.full((budget + 1,), s, dtype=torch.int32, device=dev)
+            ids[torch.where(chosen, rank, budget).long()] = slots
+            return chosen, ids[:budget]
+
+        narrow_ok = need & (wlog2_state <= self.split_log2)
+        in_n, ids_n = pick(narrow_ok, self.extract_budget_narrow)
+        in_w, ids_w = pick(need & ~in_n, self.extract_budget)
+        overflow = (need.sum(dtype=torch.int32) - in_n.sum(dtype=torch.int32)
+                    - in_w.sum(dtype=torch.int32))
+        return ids_n, ids_w, overflow
+
+    def extract_slots(self, spec_ext: torch.Tensor, state, slot_ids,
+                      width: int = None):
         """Variable-width extraction of the slots named by ``slot_ids``
-        over every row of ``spec_ext``: [E, rows, w_cap, 2] phase-0
-        interpolated pairs (see ``ops.extract.extract_dynamic``)."""
+        over every row of ``spec_ext``: [E, rows, width, 2] phase-0
+        interpolated pairs (see ``ops.extract.extract_dynamic``), width
+        the bucket's (default w_cap; the split width for the narrow
+        bucket). A sentinel id (S) and a slot wider than the bucket get
+        start 0 and an all-zero window, hence zero rows."""
+        w = width or self.w_cap
         ids = slot_ids.long()
-        ext_start = state["ext_start"][ids]
-        windows = self.window_table[state["wlog2"][ids].long()]
-        return extract_dynamic(spec_ext, ext_start, windows, self.idft)
+        valid = ids < self.max_slots
+        ids = torch.where(valid, ids, 0)
+        wlog2 = state["wlog2"][ids].long()
+        ok = valid & (wlog2 <= int(math.log2(w)))
+        ext_start = torch.where(valid, state["ext_start"][ids], 0)
+        windows = torch.where(
+            ok[:, None], self.window_table[torch.where(ok, wlog2, 0), :w], 0.0
+        )
+        return extract_dynamic(spec_ext, ext_start.to(torch.int32), windows,
+                               getattr(self, self._idft_of[w]))
+
+    def plan_outputs(self, seg_state, flags):
+        """The scan-stage outputs of one step: flags in host layout [S, B],
+        the slot_meta snapshot and the extraction plan(s)."""
+        got, processed, emit_now, phase_used = flags
+        so = {
+            "activated": got.T,
+            "processed": processed.T,
+            "emit": emit_now.T,
+            "phase_used": phase_used.T,
+            "slot_meta": {
+                "ext_start": seg_state["ext_start"],
+                "wlog2": seg_state["wlog2"],
+                "order": seg_state["order"],
+            },
+        }
+        if self.extract_width_split:
+            ids_n, ids_w, overflow = self.extract_plan_split(
+                got, processed, seg_state["wlog2"])
+            so["slot_ids_narrow"] = ids_n
+        else:
+            ids_w, overflow = self.extract_plan(got, processed)
+        so["slot_ids"] = ids_w
+        so["ext_overflow"] = overflow
+        return so
+
+    def extract_planned(self, spec_ext, seg_state, so):
+        """The planned slots' extractions: {"extract"} and, with
+        ``extract_width_split``, {"extract_narrow"}."""
+        out = {"extract": self.extract_slots(spec_ext, seg_state,
+                                             so["slot_ids"])}
+        if self.extract_width_split:
+            out["extract_narrow"] = self.extract_slots(
+                spec_ext, seg_state, so["slot_ids_narrow"],
+                width=self.extract_width_split)
+        return out
 
 
 def scan_slots_multi(segments, states, packed_list, powact=None):

@@ -37,6 +37,7 @@ __all__ = [
 ]
 
 _BIG = 2**30
+_FLT_MIN = float(np.float32(1.1754944e-38))
 
 
 def band_power(spectrum_sq: torch.Tensor, band_masks: torch.Tensor):
@@ -60,19 +61,27 @@ def ceil_log2(v: torch.Tensor, max_log2: int) -> torch.Tensor:
     return acc
 
 
-def detect_edges(power: torch.Tensor, thresh: float, max_candidates: int):
+def detect_edges(power: torch.Tensor, thresh: float, max_candidates: int,
+                 zero_floor: bool = False):
     """[B, n_cells] powers -> (cand_s, cand_e, has_pair), each [B, K]:
     rising edges strongest first (ties to the lower index), each paired
     with the nearest following falling edge, in CELL coordinates. No
     greedy overlap rejection here (see :func:`detect_candidates_batch`).
-    An infinite ratio next to a zero cell is a valid (strongest) rise."""
+    An infinite ratio next to a zero cell is a valid (strongest) rise.
+    ``zero_floor`` (the multi-segment block, reference:
+    lib/activity_detection_channelizer_vcm_impl.cc:701-705) divides by
+    FLT_MIN where the denominator is zero, so 0/0 is a falling edge
+    rather than NaN."""
     b, n_cells = power.shape
     n_r = n_cells - 1
     k = max_candidates
     k_eff = min(k, n_r)
+    den = power[:, :-1]
+    if zero_floor:
+        den = torch.where(den == 0.0, _FLT_MIN, den)
     # python-float scalars compare in the tensor's fp32 (exact casts of
     # the f32-rounded thresholds, as jnp's weak-typed scalars)
-    ratio = power[:, 1:] / power[:, :-1]  # [B, n_r]
+    ratio = power[:, 1:] / den  # [B, n_r]
     rise = ratio > float(np.float32(thresh))
     fall = ratio < float(np.float32(1.0 / thresh))
     idx = torch.arange(n_r, dtype=torch.int32, device=power.device)
@@ -144,10 +153,12 @@ greedy_accept_batch.launches = 0
 
 
 def detect_candidates_batch(power: torch.Tensor, thresh: float,
-                            max_candidates: int):
+                            max_candidates: int, zero_floor: bool = False):
     """[B, n_cells] powers -> ([B, K] cand_s, cand_e, valid): the accepted
-    candidates in strength order, CELL coordinates, rejected ones 0."""
-    cand_s, cand_e, has_pair = detect_edges(power, thresh, max_candidates)
+    candidates in strength order, CELL coordinates, rejected ones 0
+    (``zero_floor``: see :func:`detect_edges`)."""
+    cand_s, cand_e, has_pair = detect_edges(power, thresh, max_candidates,
+                                            zero_floor)
     acc = greedy_accept_batch(cand_s, cand_e, has_pair)
     zero = torch.zeros((), dtype=torch.int32, device=power.device)
     return (

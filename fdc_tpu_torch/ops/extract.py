@@ -131,7 +131,16 @@ def _row_phases(starts: torch.Tensor, b: int, relinvovl: int):
 
 def extract_bucket_phased(spectrum, starts, folded, relinvovl: int):
     """:func:`extract_bucket` with the phase compensation applied, under
-    the static contract that the global index of row 0 is ≡ 0 (mod R)."""
+    the static contract that the global index of row 0 is ≡ 0 (mod R).
+
+    With a shared-matrix table and R in {1, 2, 4}, every phase factor is a
+    quarter turn and kernel A applies it in its store epilogue
+    (``extract_fused.extract_shared_fold``, exact). R = 8 and per-channel
+    tables have no such fold: kernel A or E extracts and
+    :func:`apply_phase_pairs` rotates (cos/sin of the angles)."""
+    if relinvovl in (1, 2, 4) and folded.dim() == 2:
+        return extract_fused.extract_shared_fold(spectrum, starts, folded,
+                                                 relinvovl)
     y = extract_bucket(spectrum, starts, folded)
     return apply_phase_pairs(y, _row_phases(starts, y.shape[1], relinvovl),
                              relinvovl)

@@ -15,9 +15,14 @@ are folded window * gain * trim * IDFT matrices with their rows in (re,
 im) interleaved order (``fft.interleave_rows``) and their columns
 interleaved pairs, so the extraction reads the complex64 spectrum as raw
 float pairs and writes the float-pair output layout directly. The
-overlap-save phase compensation stays outside (``extract.apply_phase_pairs``),
-as on the TPU. The CUDA sources are ``csrc/extract_shared.cu`` and
-``csrc/extract_static.cu`` (one GEMM, ``csrc/tile_gemm.cuh``).
+overlap-save phase compensation of a throughput bucket without measures
+and with R in {1, 2, 4} is :func:`extract_shared_fold`, kernel A's
+quarter-turn fold (the ``fold_phase_r`` branch of ``_kernel_shared``):
+the phase of row r of channel c is an exact quarter turn, applied in
+kernel A's store epilogue. Elsewhere (measured buckets, per-channel
+tables, R = 8) it stays outside (``extract.apply_phase_pairs``). The CUDA
+sources are ``csrc/extract_shared.cu`` and ``csrc/extract_static.cu``
+(one GEMM, ``csrc/tile_gemm.cuh``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,9 @@ from fdc_tpu_torch import kernels
 __all__ = [
     "extract_shared",
     "extract_shared_plain",
+    "extract_shared_fold",
+    "extract_shared_fold_plain",
+    "fold_quarter_turns",
     "gather_pairs",
     "extract_static",
     "extract_static_plain",
@@ -75,6 +83,56 @@ def extract_shared(spec, starts, mat, masks=None):
     """
     if spec.device.type == "cpu":
         return extract_shared_plain(spec, starts, mat, masks)
+    out = _launch_shared(spec, starts, mat, masks, 0)
+    extract_shared.launches += 1
+    return out
+
+
+extract_shared.launches = 0
+
+
+def fold_quarter_turns(y, starts, r: int):
+    """Rotate the [C, rows, k, 2] pairs of row b of channel c by
+    ``q = ((b % r) * (s_c % r)) % r * (4 // r)`` quarter turns (``r`` =
+    relinvovl in {1, 2, 4}): (re, im) -> (-im, re), (-re, -im), (im, -re)
+    as selects, no trigonometry."""
+    rows = torch.arange(y.shape[1], dtype=torch.int32, device=y.device)
+    q = ((rows[None, :] % r) * (starts[:, None] % r)) % r * (4 // r)
+    q = q[..., None, None]
+    jy = torch.stack([-y[..., 1], y[..., 0]], dim=-1)
+    return torch.where(q == 0, y, torch.where(
+        q == 1, jy, torch.where(q == 2, -y, -jy)))
+
+
+def extract_shared_fold_plain(spec, starts, mat, r: int):
+    """Plain PyTorch version of :func:`extract_shared_fold` (same
+    arguments and results)."""
+    return fold_quarter_turns(extract_shared_plain(spec, starts, mat),
+                              starts, r)
+
+
+def extract_shared_fold(spec, starts, mat, r: int):
+    """:func:`extract_shared` (no measures) with the overlap-save phase
+    compensation folded in, for a bucket whose row 0 has a global block
+    index that is a multiple of ``r`` (= relinvovl, in {1, 2, 4}): the
+    phase of row b of channel c, e^{j 2 pi ((b * s_c) % r) / r}, is the
+    exact quarter-turn rotation of :func:`fold_quarter_turns`. CPU tensors
+    take the plain version; CUDA tensors launch kernel A with its fold."""
+    if r not in (1, 2, 4):
+        raise ValueError(f"extract_shared_fold: R must be 1, 2 or 4, got {r}")
+    if spec.device.type == "cpu":
+        return extract_shared_fold_plain(spec, starts, mat, r)
+    out = _launch_shared(spec, starts, mat, None, r)
+    extract_shared_fold.launches += 1
+    return out
+
+
+extract_shared_fold.launches = 0
+
+
+def _launch_shared(spec, starts, mat, masks, fold_r: int):
+    """Check the inputs of kernel A and launch it (the C entry point
+    ``fdc_extract_shared``); returns out or (out, powers)."""
     rows, n = spec.shape
     l2, k2 = mat.shape
     c = starts.shape[0]
@@ -105,16 +163,12 @@ def extract_shared(spec, starts, mat, masks=None):
         partial.data_ptr() if partial is not None else None,
         _POWER_SPLITS,
         powers.data_ptr() if powers is not None else None,
-        kernels.stream_ptr(spec.device),
+        fold_r, kernels.stream_ptr(spec.device),
     )
     kernels.check(rc, "fdc_extract_shared")
-    extract_shared.launches += 1
     if masks is None:
         return out
     return out, powers
-
-
-extract_shared.launches = 0
 
 
 def extract_static_plain(spec, starts, mats):

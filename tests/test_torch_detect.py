@@ -7,7 +7,11 @@ the ``pallas_interpret`` lifecycle backend (as
 tests/test_lifecycle_pallas.py runs it) and against the plain lax.scan
 path. Inputs come from numpy with a seed. Everything here is integer or
 flag logic on shared inputs: exact. The CUDA kernels are held against
-their plain versions in tests/test_torch_kernels.py.
+their plain versions in tests/test_torch_kernels.py. The last test
+replays the reference's sequential SegmentDetection
+(tests/golden.py:golden_segment_detection) against the port's whole
+channelizer: event metadata exact, samples to 3e-4 as
+tests/test_burst_paths.py holds the JAX package.
 """
 
 import numpy as np
@@ -23,8 +27,15 @@ from fdc_tpu.models.segment_detection import (
     scan_slots_multi as jax_scan_slots_multi,
 )
 from fdc_tpu.ops import detect as jx_detect
+from fdc_tpu_torch import ChannelizerConfig, FrequencyDomainChannelizer
 from fdc_tpu_torch.models.segment_detection import SegmentDetector
 from fdc_tpu_torch.ops import detect, lifecycle
+
+from golden import (
+    golden_forward_fft,
+    golden_overlap_save,
+    golden_segment_detection,
+)
 
 
 def make_pair(band, max_slots=16, max_candidates=0, delay=1,
@@ -285,3 +296,47 @@ def test_extract_plan_matches_jax(seed):
     ref = jsd.extract_plan(jnp.asarray(got_f), jnp.asarray(proc))
     got = sd.extract_plan(torch.from_numpy(got_f), torch.from_numpy(proc))
     assert_tree_equal(got, ref, "extract_plan")
+
+
+def test_segment_detection_matches_golden():
+    """tests/test_burst_paths.py::test_segment_detection_matches_golden's
+    scene through the port: three carriers, one across a batch boundary,
+    partial emissions every 6 blocks."""
+    n, r, n_blocks = 1024, 4, 32
+    inplen = n - n // r
+    seg, mcd, thresh_db, puffer, maxblocks, delay = (
+        (0.1, 0.9), 0.04, 8.0, 0.2, 6, 1)
+    rng = np.random.default_rng(11)
+    t = np.arange(n_blocks * inplen)
+    x = 2e-3 * (rng.standard_normal(len(t)) + 1j * rng.standard_normal(len(t)))
+    for on, off, f, amp in ((4, 14, 0.30, 1.0), (8, 12, 0.60, 0.8),
+                            (18, 26, 0.45, 0.9)):
+        gate = np.zeros(len(t))
+        gate[on * inplen:off * inplen] = 1.0
+        x = x + amp * gate * np.exp(2j * np.pi * (f - 0.5) * t)
+    x = x.astype(np.complex64)
+    fdc = FrequencyDomainChannelizer(ChannelizerConfig(
+        blocksize=n, relinvovl=r,
+        activity_detection_segments=[(seg[0] - 0.5, seg[1] - 0.5)],
+        act_det_threshold=thresh_db, minchandist=mcd,
+        minchanflankpuffer=puffer, act_det_maxblocks=maxblocks,
+        act_det_deactivation_delay=delay, batch_blocks=8), device="cpu")
+    events = fdc.process(x).events
+    blocks, _ = golden_overlap_save(x.astype(np.complex128), n, n // r)
+    ref = golden_segment_detection(
+        golden_forward_fft(blocks), n, r, seg[0], seg[1], thresh_db, mcd,
+        puffer, maxblocks, delay)
+    assert len(ref) >= 3 and len(events) == len(ref)
+    for ev, g in zip(events, ref):
+        assert (ev.finalized, ev.blockstart, ev.blockend, ev.vectorstart,
+                ev.vectorend) == (g["finalized"], g["blockstart"],
+                                  g["blockend"], g["vectorstart"],
+                                  g["vectorend"])
+        if g["part"] is not None:
+            assert ev.part == g["part"]
+        assert ev.ID.split(".")[1:3] == ["DETECTED", "0"]
+        assert int(ev.ID.split(".")[-1]) == g["chan_id"]
+        np.testing.assert_allclose(ev.rel_cfreq, g["rel_cfreq"], atol=1e-9)
+        np.testing.assert_allclose(ev.rel_bw, g["rel_bw"], atol=1e-9)
+        assert ev.data.shape == g["data"].shape
+        np.testing.assert_allclose(ev.data, g["data"], atol=3e-4)

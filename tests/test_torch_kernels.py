@@ -186,6 +186,24 @@ def test_cpu_tensors_take_the_plain_version_burst(monkeypatch):
                       powact.powact_flags.launches)
 
 
+def test_cpu_tensors_take_the_plain_version_fold(monkeypatch):
+    """Kernel A's phase fold: CPU tensors compute the plain version (the
+    GEMM, then exact quarter turns), launch nothing and count nothing; an
+    R that is no quarter-turn pattern is refused."""
+    monkeypatch.setattr(kernels, "library", lambda: pytest.fail("launched"))
+    rng = np.random.default_rng(12)
+    spec, starts, mat = bucket(rng, 12, 256, 16, 8)
+    before = extract_fused.extract_shared_fold.launches
+    for r in (1, 2, 4):
+        got = extract_fused.extract_shared_fold(spec, starts, mat, r)
+        ref = extract_fused.fold_quarter_turns(
+            extract_fused.extract_shared_plain(spec, starts, mat), starts, r)
+        assert torch.equal(got, ref)
+    assert extract_fused.extract_shared_fold.launches == before
+    with pytest.raises(ValueError):
+        extract_fused.extract_shared_fold(spec, starts, mat, 8)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     """No silent fallback: a missing CUDA compiler is an error."""
     monkeypatch.setattr(kernels, "_BUILD", tmp_path)
@@ -242,6 +260,47 @@ def test_extract_shared_kernel_matches_plain(shape):
         np.testing.assert_allclose(got[1].cpu(), ref[1].cpu(), rtol=PRTOL)
     else:
         assert_close_to_max(got.cpu(), ref.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(36, 1024, 64, 8), (512, 4096, 256, 16)],
+                         ids=["small", "cfg2"])
+def test_extract_shared_fold_kernel_matches_plain(r, shape):
+    """The fold against its plain version, and exactly against the
+    unfolded kernel A rotated by the same quarter turns (the epilogue only
+    swaps and negates)."""
+    dev = cuda_device()
+    rows, n, l, c = shape
+    rng = np.random.default_rng(13)
+    spec, _, mat = bucket(rng, rows, n, l, c)
+    # starts covering every residue mod 4
+    starts = torch.from_numpy((np.sort(rng.choice((n - l) // 4, c,
+                                                  replace=False)) * 4
+                               + np.arange(c) % 4).astype(np.int32))
+    args = to((spec, starts, mat), dev)
+    before = extract_fused.extract_shared_fold.launches
+    got = extract_fused.extract_shared_fold(*args, r)
+    assert extract_fused.extract_shared_fold.launches == before + 1
+    assert_close_to_max(got.cpu(),
+                        extract_fused.extract_shared_fold_plain(*args,
+                                                                r).cpu())
+    unfolded = extract_fused.extract_shared(*args)
+    assert torch.equal(got, extract_fused.fold_quarter_turns(unfolded,
+                                                             args[1], r))
+
+
+@pytest.mark.cuda
+def test_extract_static_kernel_unchanged_by_the_fold():
+    """Kernel E (tile_gemm MODE 2, no fold) on per-channel copies of one
+    matrix equals kernel A unfolded (MODE 0) bit for bit: same tiles,
+    same accumulation order."""
+    dev = cuda_device()
+    rng = np.random.default_rng(14)
+    spec, starts, mat = to(bucket(rng, 513, 4096, 256, 5), dev)
+    mats = mat[None].repeat(5, 1, 1).contiguous()
+    assert torch.equal(extract_fused.extract_static(spec, starts, mats),
+                       extract_fused.extract_shared(spec, starts, mat))
 
 
 @pytest.mark.cuda
@@ -310,6 +369,8 @@ def test_wrappers_refuse_bad_cuda_inputs():
     spec, starts, mat = to(bucket(rng, 5, 256, 16, 3), dev)
     with pytest.raises(TypeError):
         extract_fused.extract_shared(spec, starts.long(), mat)
+    with pytest.raises(TypeError):
+        extract_fused.extract_shared_fold(spec, starts.long(), mat, 4)
     with pytest.raises(TypeError):
         detect.greedy_accept_batch(starts[None].long(), starts[None].long(),
                                    starts[None] > 0)

@@ -276,10 +276,9 @@ def test_convert_roundtrip(pair):
 
 @pytest.mark.parametrize("overrides", [
     dict(segment_splits=[(0, 2, 1)]),
-    dict(extract_width_split=64, extract_budget_narrow=4),
     dict(native_emission=True),
     dict(use_mxu_fft=False),
-], ids=["splits", "two-tier", "native", "fft-lowering"])
+], ids=["splits", "native", "fft-lowering"])
 def test_refuses_unported(overrides):
     with pytest.raises(NotImplementedError):
         FrequencyDomainChannelizer(_flagship(**SMALL, **overrides),
