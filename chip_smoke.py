@@ -4,23 +4,28 @@
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc`` (the kernels are built from ``fdc_tpu_torch/csrc``
 on first use), imports neither JAX nor fdc_tpu, and exits non-zero on
-any failure. It drives eight paths at full width, B=512: the flagship
+any failure. It drives nine paths at full width, B=512: the flagship
 (``_flagship``), the upstream example (``reference_example``: fused
 throughput + burst buckets, one detection segment), BASELINE config 3
 (``powact32``: 32 burst channels, the standalone burst chain), config 2
 (``cfg2_dama16``: 16 throughput channels, kernel A's quarter-turn phase
 fold), configs 4, 5 and 5b (two-tier slot extraction, 32, 512 and 4 x
-128 slots), and the multi-segment vcm detector built from config 5b as
-``python -m fdc_tpu vcm`` maps a configuration, fed spectra that the
-port's own front end makes on the card. Phases, one or more lines each, each ending with its
-wall seconds:
+128 slots), config 5 split into 4 parts (``cfg5s_burst_hunter_split4``:
+the cut reconciliation), and the multi-segment vcm detector built from
+config 5b as ``python -m fdc_tpu vcm`` maps a configuration, fed spectra
+that the port's own front end makes on the card. Every path's front end
+is kernel F, the four-step forward FFT. Phases, one or more lines each,
+each ending with its wall seconds:
 
 1. the card (nvidia-smi name and power limit), torch / CUDA versions, and
    the kernel build;
 2. each hand-written kernel against its plain PyTorch version on the card,
    on the inputs of every call it gets in each path's second step (the
-   first leaves the slot tables and burst states busy), and kernel D on
-   the init / floor edges;
+   first leaves the slot tables and burst states busy), kernel D on the
+   init / floor edges, kernel F at every N from 256 to 16384, kernel P on
+   every FFT probe's inputs, and kernel E on the function of
+   ``tools/pallas_extract_proto.py`` (the flagship's throughput bucket 0
+   with a matrix per channel);
 3. each path: ``FrequencyDomainChannelizer(cfg, device="cuda")`` (the
    vcm path: its front end + ``ActivityDetectionRunner``) over a scripted
    capture, process + flush, with the kernels' launch counts zeroed just
@@ -30,8 +35,13 @@ wall seconds:
 4. each path through ``device="cpu"`` (the plain versions) for two
    batches, compared with the card's step outputs and events;
 5. timing with CUDA events: each path's step on the kernel path (with
-   its host enqueue time and a torch.profiler breakdown: device launches,
-   busy time, idle share, the heaviest kernels) and on the plain path,
+   its host enqueue time, its device busy time with the stream held and
+   the idle share that leaves, and a torch.profiler breakdown where the
+   profiler sees the card: device launches, kernel time, the heaviest
+   kernels; a profiler that records no device time is reported, not a
+   failure), with the ``torch.fft``
+   front end in place of kernel F (between two kernel-path timings), and
+   on the plain path,
    and each phase-2 case's kernel against its plain version and, where
    one PyTorch call computes the same function, that call.
 
@@ -50,6 +60,7 @@ import math
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -73,6 +84,18 @@ WAVES = ((0.10, 0.45, 12), (0.60, 0.95, 12), (1.20, 2.60, 6),
 # carrier widths in detection cells: <= 4 fit the 64-bin narrow bucket
 # (40 bins x 1.4 = 56), 8 and 16 take 128 and 256 bins in the wide one
 WIDTHS = (2, 8, 1, 3, 4, 16, 2, 1, 3, 8, 2, 4)
+# kernel F's tolerance: of the spectrum's max (the summation order of
+# its products differs from the plain version's matmuls)
+FFT_TOL = 1e-5
+# the split path's cut carriers, per cut: (first cell relative to the
+# cut, width in cells, first batch, last batch). The first two join
+# mid-batch into one carrier over the cut: the upper part owns the first
+# cell's candidates, the lower part the joined carrier's as it starts,
+# so both spawn a slot; the next batch's kill rule discards the upper
+# one and the ownership rule suppresses its candidates. The third sits
+# on the cut.
+CUT_CARRIERS = ((0, 1, 0.30, 2.60), (-1, 1, 0.55, 2.60),
+                (-1, 2, 3.00, 4.40))
 # the card's published peaks (H100 SXM data sheet, 700 W): fp32 outside
 # the tensor cores, and HBM bandwidth
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
@@ -235,33 +258,69 @@ def carrier_capture(fdc, n_samples, seed=2):
     edge cells are all carrier or all floor), CARRIER * 0.6 dB steps over
     the floor's phases, gated with raised-cosine ramps of 1/8 block.
     Returns (samples, number of carriers)."""
-    cfg = fdc.config
+    return _carriers(fdc.config, [sd.geometry for sd in fdc.segments],
+                     n_samples, seed)
+
+
+def _carriers(cfg, grids, n_samples, seed, cuts=None):
+    """:func:`carrier_capture` on cell grids (start bin, n_cells,
+    decimation), plus ``cuts`` = (grid, cell indices): the CUT_CARRIERS
+    at each of those cells of that grid."""
     n = cfg.blocksize
     periodic, gate = _synth(cfg, n_samples)
     rng = np.random.default_rng(seed)
     phase = np.exp(1j * rng.uniform(0.0, 2 * np.pi, n))
     x = periodic(np.arange(n), FLOOR * phase)
     n_carriers = 0
-    for g in (sd.geometry for sd in fdc.segments):
+
+    def lay(g, cell, w, a, b, amp):
+        bins = g.start + cell * g.decimation - n // 2 + np.arange(
+            w * g.decimation)  # fftshifted index -> FFT bin
+        return gate(a, b, ramp=n // 8) * periodic(bins,
+                                                  amp * phase[bins % n])
+
+    for g in grids:
         for a, b, count in WAVES:
             count = min(count, g.n_cells // 20)
             space = g.n_cells // count
             for i in range(count):
                 w = min(WIDTHS[i % len(WIDTHS)], space - 2)
-                cell = i * space + (space - w) // 2
-                bins = g.start + cell * g.decimation - n // 2 + np.arange(
-                    w * g.decimation)  # fftshifted index -> FFT bin
-                x += gate(a, b, ramp=n // 8) * periodic(
-                    bins, CARRIER * 10 ** (0.03 * i) * phase[bins % n])
+                x += lay(g, i * space + (space - w) // 2, w, a, b,
+                         CARRIER * 10 ** (0.03 * i))
                 n_carriers += 1
+    if cuts is not None:
+        g, cells = cuts
+        for j, cut in enumerate(cells):
+            for k, (off, w, a, b) in enumerate(CUT_CARRIERS):
+                x += lay(g, cut + off, w, a, b,
+                         CARRIER * 10 ** (0.03 * (12 + 3 * j + k)))
+            n_carriers += 2  # the joined pair is one carrier
     return x.astype(np.complex64), n_carriers
+
+
+def split_capture(fdc, n_samples, seed=2):
+    """The split path's capture on the parent segment's cell grid: the
+    comb floor, the WAVES inside every part's core (4 cells clear of the
+    cuts) and the CUT_CARRIERS at each cut."""
+    parts = fdc.segments
+    dec = parts[0].geometry.decimation
+    start = parts[0].geometry.start  # the parent's first cell
+    cores = [((lo - start) // dec, (hi - start) // dec)
+             for lo, hi in (sd.core_bins for sd in parts)]
+    grids = [SimpleNamespace(start=start + (lo + 4) * dec,
+                             n_cells=hi - lo - 8, decimation=dec)
+             for lo, hi in cores]
+    parent = SimpleNamespace(start=start, decimation=dec)
+    return _carriers(fdc.config, grids, n_samples, seed,
+                     cuts=(parent, [hi for _, hi in cores[:-1]]))
 
 
 def card_spectra(cfg, x, device):
     """The [B, N] spectra of each whole batch of samples in ``x``, framed
     and transformed on ``device`` by the port's front end
-    (``frame_blocks`` + ``forward_spectrum``) one batch at a time, the
-    shapes ``process`` uses; a list of host arrays."""
+    (``frame_blocks`` + ``forward_spectrum`` on the configuration's
+    route, kernel F) one batch at a time, the shapes ``process`` uses; a
+    list of host arrays."""
     import torch
 
     from fdc_tpu_torch.ops.fft import forward_spectrum
@@ -274,7 +333,8 @@ def card_spectra(cfg, x, device):
         blocks, hist = frame_blocks(
             torch.from_numpy(x[i * bs:(i + 1) * bs]).to(device), hist,
             cfg.blocksize)
-        spectra.append(forward_spectrum(blocks).cpu().numpy())
+        spectra.append(forward_spectrum(blocks, use_mxu=cfg.use_mxu_fft)
+                       .cpu().numpy())
     return spectra
 
 
@@ -338,8 +398,9 @@ class VcmPath:
         from fdc_tpu_torch.ops.framing import frame_blocks
 
         blocks, hist = frame_blocks(x, carry["hist"], self.config.blocksize)
-        run, outs = self._steps._device_step(carry["run"],
-                                             forward_spectrum(blocks))
+        run, outs = self._steps._device_step(
+            carry["run"],
+            forward_spectrum(blocks, use_mxu=self.config.use_mxu_fft))
         return ({"hist": hist, "run": run},
                 {f"seg{i}": o for i, o in enumerate(outs)})
 
@@ -374,18 +435,53 @@ def cuda_time(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
+def held_time(fn, hold_ms):
+    """Device milliseconds of one call of fn() with no host gaps, by CUDA
+    events alone: a spin kernel holds the stream for ``hold_ms`` while the
+    host enqueues the call, so the call's kernels then run back to back.
+    None when the host was not done before the spin ended (the time would
+    hold host gaps)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    torch.cuda._sleep(1 << 20)
+    t1.record()
+    torch.cuda.synchronize()
+    cycles = int(hold_ms / t0.elapsed_time(t1) * (1 << 20))
+    torch.cuda._sleep(cycles)
+    t0.record()
+    fn()
+    t1.record()
+    held = not t0.query()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) if held else None
+
+
 def wrappers():
     """(kernel name, module, attribute) of every kernel wrapper. Callers
     reach each wrapper through its module, each carries ``.launches`` and
     has a plain twin ``<attribute>_plain`` in the same module."""
-    from fdc_tpu_torch.ops import detect, extract_fused, lifecycle, powact
+    from fdc_tpu_torch.ops import (
+        detect,
+        extract_fused,
+        fft,
+        lifecycle,
+        powact,
+        probes,
+    )
 
     return (("extract_shared", extract_fused, "extract_shared"),
             ("greedy_accept", detect, "greedy_accept_batch"),
             ("slot_lifecycle", lifecycle, "slot_lifecycle_multi"),
             ("powact", powact, "powact_flags"),
             ("extract_static", extract_fused, "extract_static"),
-            ("extract_shared_fold", extract_fused, "extract_shared_fold"))
+            ("extract_shared_fold", extract_fused, "extract_shared_fold"),
+            ("forward_fft", fft, "forward_spectrum_four_step"),
+            ("tile_probe", probes, "tile_probe"))
 
 
 def counters():
@@ -407,6 +503,12 @@ KERNELS = {
                        "fdc_tpu/ops/extract_pallas.py:62"),
     "extract_shared_fold": ("fdc_tpu_torch/csrc/extract_shared.cu",
                             "fdc_tpu/ops/extract_pallas.py:142"),
+    "forward_fft": ("fdc_tpu_torch/csrc/forward_fft.cu",
+                    "tools/pallas_fft_proto.py:83,99; "
+                    "tools/pallas_fft_proto2.py:90"),
+    "tile_probe": ("fdc_tpu_torch/csrc/fft_probes.cu",
+                   "tools/pallas_fft_micro.py:39-90; "
+                   "tools/pallas_fft_micro2.py:44-92"),
 }
 
 
@@ -429,6 +531,19 @@ def plain_path():
     """Route the main paths through the plain PyTorch versions (for the
     plain-path timing on the card)."""
     return swapped(lambda k, fn, plain: plain)
+
+
+def cufft_front_end():
+    """Route the main paths' forward FFT through ``torch.fft`` (shifted
+    and scaled) instead of kernel F, the other kernels unchanged: the
+    step's cost of F over cuFFT, within one run."""
+    from fdc_tpu_torch.ops import fft
+
+    def make(k, fn, plain):
+        if k != "forward_fft":
+            return fn
+        return lambda blocks: fft.forward_spectrum(blocks, use_mxu=False)
+    return swapped(make)
 
 
 def clone(tree):
@@ -543,8 +658,96 @@ def extract_work(spec, starts, mats, masks=None):
             cmp_measured)
 
 
+def fft_case(what, blocks, kern, plain):
+    """Kernel F on [B, N] blocks. The bound is the function's, a shifted
+    and scaled DFT: the blocks read and the spectrum written once, and an
+    FFT's 5 N log2 N fp32 operations a block (not the 8 N (m1 + m2) of
+    the DFT-as-product form F computes it by); the library call is
+    ``torch.fft.fft`` on the same blocks (no shift, no scale)."""
+    import torch
+
+    rows, n = blocks.shape
+    return case("forward_fft", lambda: kern(blocks), lambda: plain(blocks),
+                cmp_close("forward_fft", 0.0, FFT_TOL), what,
+                2 * blocks.numel() * 8,
+                5.0 * n * math.log2(n) * rows,
+                lambda: torch.fft.fft(blocks))
+
+
+def fft_cases():
+    """Kernel F at every N it covers, B = 64 blocks of seeded noise."""
+    import torch
+
+    from fdc_tpu_torch.ops import fft
+
+    rng = np.random.default_rng(4)
+    out = []
+    for log2n in range(8, 15):
+        n = 1 << log2n
+        x = (rng.standard_normal((64, n))
+             + 1j * rng.standard_normal((64, n))).astype(np.complex64)
+        out.append(fft_case(f"N={n} [64, {n}]",
+                            torch.from_numpy(x).to("cuda"),
+                            fft.forward_spectrum_four_step,
+                            fft.forward_spectrum_four_step_plain))
+    return out
+
+
+def probe_cases():
+    """Kernel P on every FFT probe's own inputs (numpy seed 0)."""
+    import torch
+
+    from fdc_tpu_torch.ops import probes
+
+    out = []
+    for name in probes.PROBES:
+        ins = [torch.from_numpy(a).to("cuda")
+               for a in probes.probe_inputs(name)]
+        res = probes.tile_probe_plain(name, *ins)
+        out.append(case(
+            "tile_probe",
+            lambda name=name, ins=ins: probes.tile_probe(name, *ins),
+            lambda name=name, ins=ins: probes.tile_probe_plain(name, *ins),
+            cmp_close(name, 0.0, FFT_TOL),
+            f"{name} {[list(v.shape) for v in ins]} -> {list(res.shape)}",
+            nbytes(ins) + nbytes(res), probes.probe_flops(name)))
+    return out
+
+
+def extract_proto_case(fdc, x):
+    """Kernel E on the function of ``tools/pallas_extract_proto.py``
+    (:52-68): the flagship's throughput bucket 0 with a folded matrix per
+    channel, over the spectra of the capture's first batch."""
+    import torch
+
+    from fdc_tpu_torch.ops import extract, extract_fused
+    from fdc_tpu_torch.ops.fft import forward_spectrum
+    from fdc_tpu_torch.ops.framing import frame_blocks
+
+    cfg, dev = fdc.config, fdc.device
+    bucket = fdc.throughput.buckets[0]
+    starts = torch.from_numpy(bucket.starts).to(dev)
+    mats = torch.from_numpy(extract.static_folded_matrices(
+        cfg.blocksize, bucket.starts, bucket.windows,
+        bucket.width - bucket.out_len, float(bucket.width))).to(dev)
+    blocks, _ = frame_blocks(
+        torch.from_numpy(x[:fdc.batch_samples]).to(dev),
+        torch.zeros(cfg.ovllen, dtype=torch.complex64, device=dev),
+        cfg.blocksize)
+    spec = forward_spectrum(blocks, use_mxu=True)
+    what, bytes_, flops, library, cmp = extract_work(spec, starts, mats)
+    return case("extract_static",
+                lambda: extract_fused.extract_static(spec, starts, mats),
+                lambda: extract_fused.extract_static_plain(spec, starts,
+                                                           mats),
+                cmp, f"tools/pallas_extract_proto.py: flagship bucket 0 "
+                f"{what}", bytes_, flops, library)
+
+
 def call_case(path, name, fn, plain, a, kw):
     """A kernel case from one recorded call of a path's step."""
+    if name == "forward_fft":
+        return fft_case(f"{path} {list(a[0].shape)}", a[0], fn, plain)
     if name in ("extract_shared", "extract_static", "extract_shared_fold"):
         # the fold's yardstick is the product alone, without the rotation
         fold = name == "extract_shared_fold"
@@ -647,9 +850,24 @@ def event_kinds(events):
 def plan_tally(fdc):
     """Count, over the steps run inside the block, the real (not
     sentinel) rows the detection segments' plans ship in the narrow and
-    the wide bucket, and the largest ``ext_overflow``."""
+    the wide bucket, and the largest ``ext_overflow``; on a split
+    segment also the slots its cut reconciliation killed and the
+    candidates it suppressed."""
     tally = {"narrow": 0, "wide": 0, "overflow": 0}
     segs = list(getattr(fdc, "segments", ()))
+    split = [segs[i] for i in getattr(fdc, "_split_neighbors", ())]
+    if split:
+        tally.update(killed=0, suppressed=0)
+    for sd in split:
+        def reconcile(state, packed, kill_from, suppress_from, sd=sd,
+                      orig=sd.reconcile_split):
+            st, pk, killed = orig(state, packed, kill_from, suppress_from)
+            k = sd.k_pack
+            tally["killed"] += int(killed.sum())
+            tally["suppressed"] += int((packed[:, 2 * k:3 * k] != 0).sum()
+                                       - (pk[:, 2 * k:3 * k] != 0).sum())
+            return st, pk, killed
+        sd.reconcile_split = reconcile
     for sd in segs:
         def plan(seg_state, flags, sd=sd, orig=sd.plan_outputs):
             so = orig(seg_state, flags)
@@ -666,6 +884,8 @@ def plan_tally(fdc):
     finally:
         for sd in segs:
             del sd.plan_outputs
+        for sd in split:
+            del sd.reconcile_split
 
 
 def run_path(name, fdc, x, expect):
@@ -742,10 +962,12 @@ def compare_cpu(name, make, x):
 
 def time_step(name, fdc, x, card, top=8):
     """Phase 5 for one path: the step time by CUDA events (carry fed
-    forward), the host time to enqueue one step, a torch.profiler
-    breakdown of 3 of the same steps (device launches, busy time, idle
-    share of the step time, the heaviest kernels) and the plain path's
-    step time."""
+    forward), then the same with the cuFFT front end and with kernel F
+    again, the host time to enqueue one step, the device busy time of a
+    step with the stream held (``held_time``) and its idle share of the
+    step time, a torch.profiler breakdown of 3 of the same steps (device
+    launches, busy time, the heaviest kernels) where the profiler sees
+    the card, and the plain path's step time."""
     import statistics
 
     import torch
@@ -758,6 +980,9 @@ def time_step(name, fdc, x, card, top=8):
         carry[0], _ = fdc._device_step(carry[0], xb, 0)
 
     ms = cuda_time(step, 20)
+    with cufft_front_end():
+        ms_cufft = cuda_time(step, 20)
+    ms_again = cuda_time(step, 20)
     enqueue = []
     for _ in range(10):
         torch.cuda.synchronize()
@@ -765,6 +990,16 @@ def time_step(name, fdc, x, card, top=8):
         step()
         enqueue.append((time.perf_counter() - t) * 1e3)
     torch.cuda.synchronize()
+    held = [held_time(step, 3 * max(enqueue) + 5.0) for _ in range(5)]
+    held = [h for h in held if h is not None]
+    if held:
+        busy = statistics.median(held)
+        held_txt = (f"device busy {busy:.4f} ms/step with the stream held "
+                    f"({len(held)} of 5 steps), idle share "
+                    f"{1 - busy / ms:.3f}")
+    else:
+        held_txt = ("device busy with the stream held: not measured (the "
+                    "host was still enqueueing when the hold ended)")
     n_steps = 3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -773,20 +1008,26 @@ def time_step(name, fdc, x, card, top=8):
         torch.cuda.synchronize()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert dev, "torch.profiler recorded no device time on this card"
     by_name = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy = sum(by_name.values()) / 1e3 / n_steps
+    if dev:
+        busy = sum(by_name.values()) / 1e3 / n_steps
+        prof_txt = (f"profiler: {len(dev) / n_steps:.0f} device "
+                    f"launches/step, kernels busy {busy:.4f} ms/step, idle "
+                    f"share {1 - busy / ms:.3f}")
+    else:
+        prof_txt = "profiler: recorded no device time on this card"
     with plain_path():
         ms_plain = cuda_time(step, 3)
     bs = fdc.batch_samples
     log(f"phase 5: {name} step B={fdc.config.batch_blocks}: kernel path "
         f"{ms:.4f} ms ({bs / ms / 1e3:.1f} MS/s), plain path "
-        f"{ms_plain:.4f} ms ({bs / ms_plain / 1e3:.1f} MS/s); host enqueue "
-        f"median {statistics.median(enqueue):.4f} ms; profiler: "
-        f"{len(dev) / n_steps:.0f} device launches/step, device busy "
-        f"{busy:.4f} ms/step, idle share {1 - busy / ms:.3f} {card}")
+        f"{ms_plain:.4f} ms ({bs / ms_plain / 1e3:.1f} MS/s); cuFFT front "
+        f"end {ms_cufft:.4f} ms between kernel F's {ms:.4f} and "
+        f"{ms_again:.4f} ms; host enqueue "
+        f"median {statistics.median(enqueue):.4f} ms; {held_txt}; "
+        f"{prof_txt} {card}")
     for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"  {us / 1e3 / n_steps:.4f} ms/step  {kname[:110]}")
 
@@ -810,6 +1051,7 @@ def path_table():
         cfg4_segdet,
         cfg5_burst_hunter512,
         cfg5b_burst_hunter_4seg,
+        cfg5s_burst_hunter_split4,
         powact32,
         reference_example,
     )
@@ -817,24 +1059,28 @@ def path_table():
     def on_config(capture):
         return lambda fdc, n: (capture(fdc.config, n), None)
 
-    detection = ("greedy_accept", "slot_lifecycle")
+    # every path's front end is kernel F
+    detection = ("forward_fft", "greedy_accept", "slot_lifecycle")
     return (
         ("flagship", channelizer(_flagship(batch_blocks=512)),
          on_config(scripted_capture),
-         ("extract_shared", "greedy_accept", "slot_lifecycle")),
+         ("forward_fft", "extract_shared", "greedy_accept",
+          "slot_lifecycle")),
         ("example", channelizer(reference_example()),
          on_config(burst_capture),
-         ("extract_static", "extract_shared", "greedy_accept",
-          "slot_lifecycle")),
+         ("forward_fft", "extract_static", "extract_shared",
+          "greedy_accept", "slot_lifecycle")),
         ("powact32", channelizer(powact32()), on_config(burst_capture),
-         ("powact", "extract_shared")),
+         ("forward_fft", "powact", "extract_shared")),
         ("dama16", channelizer(cfg2_dama16()), on_config(burst_capture),
-         ("extract_shared_fold",)),
+         ("forward_fft", "extract_shared_fold")),
         ("segdet", channelizer(cfg4_segdet()), carrier_capture, detection),
         ("hunter512", channelizer(cfg5_burst_hunter512()), carrier_capture,
          detection),
         ("hunter4seg", channelizer(cfg5b_burst_hunter_4seg()),
          carrier_capture, detection),
+        ("split4", channelizer(cfg5s_burst_hunter_split4()), split_capture,
+         detection),
         ("vcm4seg", lambda device: VcmPath(cfg5b_burst_hunter_4seg(),
                                            device),
          carrier_capture, detection),
@@ -860,6 +1106,10 @@ def check_path(name, p, res, kinds, chans, tally, fins):
         assert tally["narrow"] > 0 and tally["wide"] > 0, (name, tally)
         if name == "segdet":
             assert tally["overflow"] > 0, (name, tally)
+        if name == "split4":
+            # the cut carriers made duplicates that the kill rule
+            # discarded, and candidates the ownership rule suppressed
+            assert tally["killed"] > 0 and tally["suppressed"] > 0, tally
         log(f"phase 3: {name}: {fins} finished detections of "
             f"{p['carriers']} scripted carriers")
         return
@@ -933,6 +1183,9 @@ def main() -> int:
              for name, p in paths.items()
              for call in step_calls(p["fdc"], p["x"])]
     cases.append(powact_edge_case(paths["powact32"]["fdc"]))
+    cases.append(extract_proto_case(paths["flagship"]["fdc"],
+                                    paths["flagship"]["x"]))
+    cases += fft_cases() + probe_cases()
     summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                    "bound_ms": 0.0, "bound_by": "bytes", "bound_max": 0.0,
                    "library_ms": 0.0, "has_library": True}

@@ -11,6 +11,8 @@
   :func:`cfg5_burst_hunter512`, :func:`cfg5b_burst_hunter_4seg`: the
   other BASELINE configurations, with ``tools/bench_configs.py``'s
   parameters.
+- :func:`cfg5s_burst_hunter_split4`: config 5's band as one segment split
+  into 4 parts (``tools/ablate35_tpu.py``'s split configuration).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from fdc_tpu_torch.config import ChannelizerConfig
 __all__ = [
     "_flagship", "reference_example", "powact32", "cfg1_single_static",
     "cfg2_dama16", "cfg4_segdet", "cfg5_burst_hunter512",
-    "cfg5b_burst_hunter_4seg", "EXAMPLE_CHANNELS",
+    "cfg5b_burst_hunter_4seg", "cfg5s_burst_hunter_split4",
+    "EXAMPLE_CHANNELS",
 ]
 
 # the example's four channels (normalized baseband), each both a
@@ -140,3 +143,16 @@ def cfg5b_burst_hunter_4seg(**overrides):
         act_det_threshold=6.0, minchandist=0.005, max_slots=128,
         max_candidates=32, max_extract_width=512, extract_budget=2,
         extract_width_split=64, extract_budget_narrow=8)
+
+
+def cfg5s_burst_hunter_split4(**overrides):
+    """Config 5 split (``tools/ablate35_tpu.py:60-73``): config 5's band
+    as ONE segment split into 4 parts with 2 cells of overlap, each part
+    128 slots with config 5b's per-segment budgets (2 wide + 8 narrow
+    rows)."""
+    return _baseline(
+        overrides, activity_detection_segments=[(-0.45, 0.45)],
+        act_det_threshold=6.0, minchandist=0.005, max_slots=128,
+        max_candidates=32, max_extract_width=512, extract_budget=2,
+        extract_width_split=64, extract_budget_narrow=8,
+        segment_splits=[(0, 4, 2)])

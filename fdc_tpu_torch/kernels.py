@@ -49,6 +49,8 @@ _SIGNATURES = {
                            _P, _P, _P, _P, _I, _P],
     "fdc_powact": [_P, _I, _I, _P, _P, _P, _P, _F, _I, _P, _P, _P, _P,
                    _P, _P, _P, _P],
+    "fdc_forward_fft": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "fdc_tile_probe": [_I, _P, _P, _P, _P, _I, _P, _P],
 }
 
 _lib = None

@@ -23,7 +23,11 @@ import torch
 from torch import nn
 
 from fdc_tpu_torch.config import VerboseMode, solve_segment_vcm
-from fdc_tpu_torch.models.channelizer import _pairs_to_complex, _to_host
+from fdc_tpu_torch.models.channelizer import (
+    _pairs_to_complex,
+    _to_host,
+    resolve_device,
+)
 from fdc_tpu_torch.models.segment_detection import (
     SegmentDetector,
     scan_slots_multi,
@@ -40,8 +44,9 @@ class ActivityDetectionChannelizer(nn.Module):
     include/FDC/activity_detection_channelizer_vcm.h make(...)): blocklen,
     segments [[start, stop]] in FDC [0, 1) coordinates, thresh (dB),
     relinvovl, minchandist, channel_deactivation_delay,
-    window_flank_puffer. ``device`` is required: ``"cuda"`` runs the
-    kernels, ``"cpu"`` their plain versions."""
+    window_flank_puffer. ``device`` defaults to ``"cuda"``, the kernels
+    (the constructor raises without a CUDA device); ``"cpu"`` runs their
+    plain versions."""
 
     def __init__(
         self,
@@ -60,13 +65,13 @@ class ActivityDetectionChannelizer(nn.Module):
         extract_width_split: int = 0,
         extract_budget_narrow: int = 0,
         *,
-        device,
+        device="cuda",
     ):
         super().__init__()
         if blocklen < 2 or blocklen & (blocklen - 1):
             raise ValueError("Blocklen invalid (must be a power of 2 >= 2)")
         self.blocklen = blocklen
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # one shared lifecycle log for all segments (reference:
         # lib/activity_detection_channelizer_vcm_impl.cc:88-100)
         self.log = (

@@ -32,7 +32,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from fdc_tpu_torch.config import ChannelizerConfig, VerboseMode
+from fdc_tpu_torch.config import (
+    ChannelizerConfig,
+    VerboseMode,
+    solve_segment,
+    split_segment_geometry,
+)
 from fdc_tpu_torch.models.power_activation import (
     _FLOAT_MIN as _PA_FLOAT_MIN,
     PowerActivationBank,
@@ -48,7 +53,7 @@ from fdc_tpu_torch.ops.extract import (
     extract_bucket_measured,
     extract_bucket_phased,
 )
-from fdc_tpu_torch.ops.fft import forward_spectrum
+from fdc_tpu_torch.ops.fft import FOUR_STEP_MAX_N, forward_spectrum
 from fdc_tpu_torch.ops.framing import frame_blocks
 from fdc_tpu_torch.runtime.emission import (
     PowerActivationEmitter,
@@ -62,6 +67,19 @@ __all__ = [
     "ProcessResult",
     "finalize_rounds_bound",
 ]
+
+
+def resolve_device(device) -> torch.device:
+    """The module's torch device: ``"cuda"`` (the default of the entry
+    points) must have a CUDA device behind it; there is no CPU fallback
+    (``"cpu"`` asks for the kernels' plain versions)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "fdc_tpu_torch: no CUDA device (the kernels run on the card); "
+            "pass device='cpu' for their plain PyTorch versions"
+        )
+    return dev
 
 
 def finalize_rounds_bound(segments, batch_blocks: int) -> int:
@@ -92,12 +110,13 @@ class ProcessResult:
 def _check_slice(cfg: ChannelizerConfig) -> None:
     """Refuse configurations that need parts of fdc_tpu not ported yet."""
     missing = []
-    if cfg.segment_splits:
-        missing.append("segment_splits (split reconciliation)")
     if cfg.native_emission is True:
         missing.append("native_emission=True (the C++ emitters)")
     if not cfg.use_mxu_fft:
         missing.append("use_mxu_fft=False (FFT-lowered subband transforms)")
+    elif cfg.blocksize > FOUR_STEP_MAX_N:
+        missing.append(f"use_mxu_fft with blocksize > {FOUR_STEP_MAX_N} "
+                       "(the four-step forward FFT's kernel)")
     if missing:
         raise NotImplementedError(
             "fdc_tpu_torch does not port yet: " + "; ".join(missing)
@@ -119,8 +138,9 @@ def _to_host(tree):
 class FrequencyDomainChannelizer(nn.Module):
     """Parameter-compatible top-level channelizer on one torch device.
 
-    ``device`` is required (no implicit default): ``"cuda"`` runs the
-    hand-written kernels, ``"cpu"`` their plain PyTorch versions. Use
+    ``device`` defaults to ``"cuda"``, the hand-written kernels (the
+    constructor raises without a CUDA device); ``"cpu"`` runs their plain
+    PyTorch versions. Use
     ``process(samples)`` / ``flush()`` for the buffered streaming API
     (or ``process_spectra(spectra)`` / ``flush()`` on pre-FFT'd spectra;
     one entry point per stream), or drive ``_device_step`` directly.
@@ -130,7 +150,7 @@ class FrequencyDomainChannelizer(nn.Module):
     """
 
     def __init__(self, config: Optional[ChannelizerConfig] = None, *,
-                 device, **kwargs):
+                 device="cuda", **kwargs):
         super().__init__()
         if config is None:
             config = ChannelizerConfig(**kwargs)
@@ -138,7 +158,7 @@ class FrequencyDomainChannelizer(nn.Module):
             config = config.replace(**kwargs)
         _check_slice(config)
         self.config = cfg = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
@@ -180,21 +200,42 @@ class FrequencyDomainChannelizer(nn.Module):
                                   keep_from=w - pb.out_len, gain=1.0)
                 ))
                 self._fused[w] = (name, tb)
-        self.segments = nn.ModuleList(
-            SegmentDetector(
-                i, cfg.blocksize, cfg.relinvovl, a, b,
-                cfg.act_det_threshold, cfg.fdc_minchandist(),
-                cfg.minchanflankpuffer if cfg.minchanflankpuffer >= 0
-                else 0.2,
-                cfg.act_det_deactivation_delay
-                if cfg.act_det_deactivation_delay >= 0 else 0,
-                cfg.max_slots, cfg.max_candidates, cfg.max_extract_width,
-                extract_budget=cfg.extract_budget,
-                extract_width_split=cfg.extract_width_split,
-                extract_budget_narrow=cfg.extract_budget_narrow,
-            )
-            for i, (a, b) in enumerate(cfg.fdc_activity_detection_segments())
-        )
+        # a split segment expands into parts on the parent's cell grid
+        # with overlapping scan margins (config.split_segment_geometry),
+        # each a SegmentDetector with the next segment id; the adjacency
+        # {part: (lower part | None, upper part | None)} drives the cut
+        # reconciliation (JAX: models/channelizer.py:128-181)
+        self.segments = nn.ModuleList()
+        self._split_neighbors = {}
+        splits = {idx: (n, ovl) for idx, n, ovl in cfg.segment_splits}
+        for i, (a, b) in enumerate(cfg.fdc_activity_detection_segments()):
+            geoms = [(None, None)]
+            if i in splits:
+                parent = solve_segment(cfg.blocksize, a, b,
+                                       cfg.fdc_minchandist())
+                geoms = split_segment_geometry(parent, *splits[i])
+            base = len(self.segments)
+            if len(geoms) > 1:
+                for p in range(len(geoms)):
+                    self._split_neighbors[base + p] = (
+                        base + p - 1 if p > 0 else None,
+                        base + p + 1 if p + 1 < len(geoms) else None,
+                    )
+            for geom, core in geoms:
+                self.segments.append(SegmentDetector(
+                    len(self.segments), cfg.blocksize, cfg.relinvovl, a, b,
+                    cfg.act_det_threshold, cfg.fdc_minchandist(),
+                    cfg.minchanflankpuffer if cfg.minchanflankpuffer >= 0
+                    else 0.2,
+                    cfg.act_det_deactivation_delay
+                    if cfg.act_det_deactivation_delay >= 0 else 0,
+                    cfg.max_slots, cfg.max_candidates, cfg.max_extract_width,
+                    geometry=geom,
+                    extract_budget=cfg.extract_budget,
+                    extract_width_split=cfg.extract_width_split,
+                    extract_budget_narrow=cfg.extract_budget_narrow,
+                    core_bins=core,
+                ))
 
         # -- per-component lifecycle loggers (reference:
         # lib/SegmentDetection_impl.cc:49-57,474-481,
@@ -325,7 +366,7 @@ class FrequencyDomainChannelizer(nn.Module):
         index of the first block. Returns (new_carry, outputs)."""
         cfg = self.config
         blocks, hist = frame_blocks(x, carry["hist"], cfg.blocksize)
-        spec = forward_spectrum(blocks)  # [B, N]
+        spec = forward_spectrum(blocks, use_mxu=cfg.use_mxu_fft)  # [B, N]
         new_carry = dict(carry)
         new_carry["hist"] = hist
         return self._step_from_spec(new_carry, spec, t0)
@@ -438,6 +479,10 @@ class FrequencyDomainChannelizer(nn.Module):
         in kernel D without segments — and the extraction plans. Updates
         ``carry_io`` in place; returns the flags/plans."""
         scans = {"segs": []}
+        seg_killed = self._reconcile_splits(
+            carry_io, seg_packed,
+            {i: carry_io[f"seg{i}"] for i in self._split_neighbors},
+        )
         if not len(self.segments):
             if self.power_bank:
                 carry_io["powact"], scans["powact"] = (
@@ -457,9 +502,33 @@ class FrequencyDomainChannelizer(nn.Module):
         for i, sd in enumerate(self.segments):
             seg_state, flags = seg_scans[i]
             carry_io[f"seg{i}"] = seg_state
-            scans["segs"].append((seg_state, sd.plan_outputs(seg_state,
-                                                             flags)))
+            so = sd.plan_outputs(seg_state, flags)
+            if i in seg_killed:
+                so["killed"] = seg_killed[i]
+            scans["segs"].append((seg_state, so))
         return scans
+
+    def _reconcile_splits(self, carry_io, seg_packed, entry_states):
+        """The split parts' cut reconciliation
+        (:meth:`SegmentDetector.reconcile_split`) against
+        ``entry_states``, every part's state at the end of the previous
+        batch: kills duplicate slots at the cuts (the lower part wins) and
+        suppresses candidates a neighbor tracks. Updates ``carry_io`` and
+        ``seg_packed`` in place; returns {segment: killed [S] bool} for the
+        emitters (JAX: models/channelizer.py:567-595)."""
+        seg_killed = {}
+        for i, (lo, hi) in self._split_neighbors.items():
+            kill_from = [] if lo is None else [
+                SegmentDetector.split_foreign_view(entry_states[lo])]
+            suppress_from = list(kill_from)
+            if hi is not None:
+                suppress_from.append(
+                    SegmentDetector.split_foreign_view(entry_states[hi]))
+            carry_io[f"seg{i}"], seg_packed[i], seg_killed[i] = (
+                self.segments[i].reconcile_split(
+                    entry_states[i], seg_packed[i], kill_from,
+                    suppress_from))
+        return seg_killed
 
     def _finish_detections(self, out, scans, spec_ext, pa_ext, seg_powers):
         """Assemble the detection outputs, extracting the planned slots."""

@@ -71,6 +71,7 @@ class SegmentDetector(nn.Module):
         vcm: bool = False,
         extract_width_split: int = 0,
         extract_budget_narrow: int = 0,
+        core_bins=None,
     ):
         super().__init__()
         if thresh_db < 0.0:
@@ -120,6 +121,19 @@ class SegmentDetector(nn.Module):
         self.geometry: SegmentGeometry = geometry or solve_segment(
             blocksize, seg_start, seg_stop, minchandist
         )
+        # a split part's candidate ownership window
+        # (config.split_segment_geometry): reconcile_split keeps a spawn
+        # candidate only if its extraction midpoint bin is in [core_bins)
+        self.core_bins = None
+        if core_bins is not None:
+            lo, hi = int(core_bins[0]), int(core_bins[1])
+            g = self.geometry
+            if not g.start <= lo < hi <= g.stop:
+                raise ValueError(
+                    f"core_bins {core_bins} outside segment "
+                    f"[{g.start}, {g.stop})"
+                )
+            self.core_bins = (lo, hi)
         # K for edge detection (0 = exact: every ratio position) vs K of
         # the candidate pack: accepted intervals are disjoint and at least
         # two cells wide (thresh >= 1), so at most (n_cells - 1) // 2
@@ -206,6 +220,102 @@ class SegmentDetector(nn.Module):
              too_big.to(torch.int32)],
             dim=1,
         )
+
+    def _recompact_pack(self, packed: torch.Tensor, keep: torch.Tensor):
+        """Order-preserving re-compaction of a [B, 7K] candidate pack under
+        a new validity mask ``keep`` [B, K] (K = k_pack): kept candidates
+        to the front, group 2 replaced by ``keep``, the rest zero. Kernel C
+        reads valid-first packs."""
+        b, k = keep.shape
+        rank = torch.cumsum(keep.to(torch.int32), 1, dtype=torch.int32) - 1
+        dest = torch.where(keep, rank, k).long()  # column k: discard
+        groups = packed.reshape(b, 7, k).clone()
+        groups[:, 2] = keep.to(torch.int32)
+        taken = torch.zeros((b, 7, k + 1), dtype=torch.int32,
+                            device=packed.device)
+        taken.scatter_(2, dest[:, None, :].expand(b, 7, k), groups)
+        return taken[:, :, :k].reshape(b, 7 * k)
+
+    def reconcile_split(self, state, packed, kill_from, suppress_from):
+        """A split part's pre-scan reconciliation against its neighbors'
+        slot tables as of the end of the previous batch (``kill_from`` /
+        ``suppress_from``: tuples ``(det_start, det_stop, live)``, see
+        :meth:`split_foreign_view`), with ``fdc_tpu``'s three rules:
+
+        1. kill: a live local slot overlapping a live slot of the lower
+           neighbor is dropped silently (``killed``: the emitters discard
+           its buffered samples);
+        2. refresh priority: a candidate overlapping a live local slot is
+           kept, and so is one overlapping an earlier block's kept
+           candidate of this batch (the batch-local chain closure);
+        3. spawn ownership: any other candidate is kept only if its
+           midpoint bin is in this part's core and it overlaps no live
+           foreign slot.
+
+        Returns ``(state', packed', killed [S] bool)``."""
+        dev = packed.device
+        killed = torch.zeros(self.max_slots, dtype=torch.bool, device=dev)
+        new_state = state
+        if kill_from:
+            live = state["active"] & ~state["tomb"]
+            ov = torch.zeros_like(killed)
+            for fds, fde, flive in kill_from:
+                # the candidate-match convention (start < stop, stop >= start)
+                ov = ov | ((state["det_start"][:, None] < fde[None, :])
+                           & (state["det_stop"][:, None] >= fds[None, :])
+                           & flive[None, :]).any(1)
+            killed = live & ov
+            new_state = {**state, "active": state["active"] & ~killed}
+        if self.core_bins is None:
+            return new_state, packed, killed
+        k = self.k_pack
+        cs, ce = packed[:, :k], packed[:, k:2 * k]
+        cv = packed[:, 2 * k:3 * k] != 0
+        mid = cs + (ce - cs) // 2  # candidate_geometry's midpoint bin
+        lo, hi = self.core_bins
+        in_core = (mid >= lo) & (mid < hi)
+        # cell-mask form on the part's cells: all values are cell-aligned
+        # bins, so "candidate [cs, ce) overlaps slot [ds, de)" is "its
+        # cells meet the slot's cells extended one cell down"
+        g = self.geometry
+        dec = g.decimation
+        cell_bins = g.start + torch.arange(g.n_cells, dtype=torch.int32,
+                                           device=dev) * dec
+        in_int = ((cell_bins[None, None, :] >= cs[:, :, None])
+                  & (cell_bins[None, None, :] < ce[:, :, None]))  # [B, K, C]
+
+        def slot_cover(ds, de, live_mask):
+            return (live_mask[:, None]
+                    & (cell_bins[None, :] >= ds[:, None] - dec)
+                    & (cell_bins[None, :] < de[:, None])).any(0)  # [C]
+
+        live = new_state["active"] & ~new_state["tomb"]
+        loc_cover = slot_cover(new_state["det_start"], new_state["det_stop"],
+                               live)
+        f_cover = torch.zeros(g.n_cells, dtype=torch.bool, device=dev)
+        for fds, fde, flive in suppress_from:
+            f_cover = f_cover | slot_cover(fds, fde, flive)
+        local_ov = (in_int & loc_cover).any(2)  # [B, K]
+        f_ov = (in_int & f_cover).any(2)
+        keep0 = cv & (local_ov | (in_core & ~f_ov))
+        # the batch-local chain: cells covered by an EARLIER block's kept
+        # candidate (the exclusive prefix OR over blocks, as "the first
+        # block covering the cell comes before this one")
+        covered = (in_int & keep0[:, :, None]).any(1)  # [B, C]
+        nb = covered.shape[0]
+        blocks = torch.arange(nb, device=dev)[:, None]
+        first = torch.where(covered, blocks, nb).amin(0)  # [C]
+        earlier = blocks > first  # [B, C]
+        chain_ov = (in_int & earlier[:, None, :]).any(2)
+        keep = keep0 | (cv & chain_ov)
+        return new_state, self._recompact_pack(packed, keep), killed
+
+    @staticmethod
+    def split_foreign_view(state):
+        """The slot-interval table a split part publishes to its neighbors
+        for :meth:`reconcile_split`: (det_start, det_stop, live)."""
+        return (state["det_start"], state["det_stop"],
+                state["active"] & ~state["tomb"])
 
     def extract_plan(self, got, processed):
         """Output compaction plan from [B, S] flags: (slot_ids [E] int32,

@@ -275,20 +275,25 @@ def test_convert_roundtrip(pair):
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(segment_splits=[(0, 2, 1)]),
     dict(native_emission=True),
     dict(use_mxu_fft=False),
-], ids=["splits", "native", "fft-lowering"])
+    # the four-step forward FFT's kernel keeps a block in shared memory
+    dict(blocksize=32768),
+], ids=["native", "fft-lowering", "four-step-over-16384"])
 def test_refuses_unported(overrides):
     with pytest.raises(NotImplementedError):
-        FrequencyDomainChannelizer(_flagship(**SMALL, **overrides),
+        FrequencyDomainChannelizer(_flagship(**{**SMALL, **overrides}),
                                    device="cpu")
 
 
 def test_construction_contract():
     cfg = _flagship(**SMALL)
-    with pytest.raises(TypeError):
-        FrequencyDomainChannelizer(cfg)  # device is required
+    # the card is the default device, with no CPU fallback
+    if torch.cuda.is_available():
+        assert FrequencyDomainChannelizer(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            FrequencyDomainChannelizer(cfg)
     torch.backends.cuda.matmul.allow_tf32 = True
     fdc = FrequencyDomainChannelizer(cfg, device="cpu")
     assert not torch.backends.cuda.matmul.allow_tf32

@@ -272,8 +272,9 @@ def test_process_spectra_matches_jax(flagship_spectra):
 
 def test_process_spectra_equals_process():
     """Spectra framed and transformed by the port's own front end
-    (frame_blocks + forward_spectrum) through process_spectra give the
-    step outputs and events of process() on the samples."""
+    (frame_blocks + forward_spectrum on the configuration's route)
+    through process_spectra give the step outputs and events of process()
+    on the samples."""
     cfg = _flagship(**SMALL)
     x = capture(cfg, n_batches=3, tail=0)
     a = FrequencyDomainChannelizer(cfg, device="cpu")
@@ -281,7 +282,7 @@ def test_process_spectra_equals_process():
     blocks, _ = frame_blocks(torch.from_numpy(x),
                              torch.zeros(cfg.ovllen, dtype=torch.complex64),
                              cfg.blocksize)
-    spectra = forward_spectrum(blocks)
+    spectra = forward_spectrum(blocks, use_mxu=cfg.use_mxu_fft)
     ca, cb = a._device_init(), b._device_init()
     bs, bb = a.batch_samples, cfg.batch_blocks
     for step in range(3):
@@ -334,11 +335,15 @@ def test_mixed_entry_points_raise():
 
 
 def test_vcm_construction_contract():
-    """device is required, the native emitters are not ported, and the
-    block length is a power of two (as the JAX package checks)."""
+    """The card is the default device (no CPU fallback), the native
+    emitters are not ported, and the block length is a power of two (as
+    the JAX package checks)."""
     kw = dict(SCENES["golden"][0])
-    with pytest.raises(TypeError):
-        ActivityDetectionChannelizer(**kw)
+    if torch.cuda.is_available():
+        assert ActivityDetectionChannelizer(**kw).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ActivityDetectionChannelizer(**kw)
     adc = ActivityDetectionChannelizer(**kw, device="cpu")
     assert isinstance(adc, torch.nn.Module)
     assert all(sd.vcm for sd in adc.segments)
