@@ -14,18 +14,20 @@ fold), configs 4, 5 and 5b (two-tier slot extraction, 32, 512 and 4 x
 the cut reconciliation), and the multi-segment vcm detector built from
 config 5b as ``python -m fdc_tpu vcm`` maps a configuration, fed spectra
 that the port's own front end makes on the card. Every path's front end
-is kernel F, the four-step forward FFT. Phases, one or more lines each,
-each ending with its wall seconds:
+is kernel F, a radix FFT. Phases, one or more lines each, each ending
+with its wall seconds:
 
 1. the card (nvidia-smi name and power limit), torch / CUDA versions, and
    the kernel build;
 2. each hand-written kernel against its plain PyTorch version on the card,
    on the inputs of every call it gets in each path's second step (the
    first leaves the slot tables and burst states busy), kernel D on the
-   init / floor edges, kernel F at every N from 256 to 16384, kernel P on
-   every FFT probe's inputs, and kernel E on the function of
-   ``tools/pallas_extract_proto.py`` (the flagship's throughput bucket 0
-   with a matrix per channel);
+   init / floor edges, kernel F at every N from 256 to 16384 and into
+   rows 1..B of an extended spectrum, kernel P on every FFT probe's
+   inputs, kernel E on the function of ``tools/pallas_extract_proto.py``
+   (the flagship's throughput bucket 0 with a matrix per channel), and
+   kernel A and its fold on ``EXTRACT_EDGES`` (odd starts, ragged shapes,
+   a k split, partly used masks with and without their extent);
 3. each path: ``FrequencyDomainChannelizer(cfg, device="cuda")`` (the
    vcm path: its front end + ``ActivityDetectionRunner``) over a scripted
    capture, process + flush, with the kernels' launch counts zeroed just
@@ -43,7 +45,13 @@ each ending with its wall seconds:
    front end in place of kernel F (between two kernel-path timings), and
    on the plain path,
    and each phase-2 case's kernel against its plain version and, where
-   one PyTorch call computes the same function, that call.
+   one PyTorch call computes the same function, that call (by CUDA
+   events over back-to-back calls, wrappers included; for kernels A, E
+   and F also the device time alone, by CUDA graph replay);
+6. kernel A's tile and k split rule (``extract_fused.gemm_plan``): on
+   its buckets of the paths, every tile width and 1-8 k splits, each
+   held against the plain version and timed by CUDA graph replay, with
+   the rule's choice ranked among them (``plan_sweep``).
 
 In the kernel summary JSON, ``ms``, ``plain_ms``, ``bound_ms`` and
 ``library_ms`` are sums over the kernel's phase-2 cases.
@@ -66,8 +74,9 @@ import numpy as np
 
 # extraction / stream tolerance (relative to each tensor's max magnitude)
 # and the power tolerance: rtol elementwise on a common spectrum (the
-# accumulation order differs), of the tensor's max end to end (cuFFT and
-# the CPU FFT also round differently, at ~1e-7 of the spectrum's scale)
+# accumulation order differs), of the tensor's max end to end (kernel F
+# and the CPU's four-step FFT also round differently, at ~1e-7 of the
+# spectrum's scale)
 RTOL, ATOL, PRTOL = 2e-4, 2e-5, 1e-5
 TONE_BIN = -589  # exact bin near the centre of throughput channel 20
 N_BATCHES = 5
@@ -84,8 +93,8 @@ WAVES = ((0.10, 0.45, 12), (0.60, 0.95, 12), (1.20, 2.60, 6),
 # carrier widths in detection cells: <= 4 fit the 64-bin narrow bucket
 # (40 bins x 1.4 = 56), 8 and 16 take 128 and 256 bins in the wide one
 WIDTHS = (2, 8, 1, 3, 4, 16, 2, 1, 3, 8, 2, 4)
-# kernel F's tolerance: of the spectrum's max (the summation order of
-# its products differs from the plain version's matmuls)
+# kernel F's tolerance: of the spectrum's max (its radix passes round
+# otherwise than the plain version's four-step matmuls, ~1e-7 of the max)
 FFT_TOL = 1e-5
 # the split path's cut carriers, per cut: (first cell relative to the
 # cut, width in cells, first batch, last batch). The first two join
@@ -435,6 +444,41 @@ def cuda_time(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
+def graph_time(fn, iters=20):
+    """Device milliseconds per call of fn(): ``iters`` calls captured in
+    one CUDA graph and replayed, so no host time is in it (the wrappers'
+    host glue can outlast a short kernel). None if the capture fails."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+    except RuntimeError as e:
+        log(f"  graph capture failed: {str(e)[:200]}")
+        torch.cuda.synchronize()
+        return None
+    ms = cuda_time(graph.replay, 10) / iters
+    del graph
+    return ms
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+# kernels whose phase-5 cases also get their device time by graph_time
+GRAPHED = ("forward_fft", "extract_shared", "extract_shared_fold",
+           "extract_static")
+
+
 def held_time(fn, hold_ms):
     """Device milliseconds of one call of fn() with no host gaps, by CUDA
     events alone: a spin kernel holds the stream for ``hold_ms`` while the
@@ -542,7 +586,8 @@ def cufft_front_end():
     def make(k, fn, plain):
         if k != "forward_fft":
             return fn
-        return lambda blocks: fft.forward_spectrum(blocks, use_mxu=False)
+        return lambda blocks, out=None: fft.forward_spectrum(
+            blocks, use_mxu=False, out=out)
     return swapped(make)
 
 
@@ -618,11 +663,13 @@ def cmp_measured(a, b):
     return max(e1, e2)
 
 
-def extract_work(spec, starts, mats, masks=None):
+def extract_work(spec, starts, mats, masks=None, extent=None):
     """(description, bytes, fp32 operations, library call, comparator) of
     kernel A (``mats`` [2l, 2k]) or E ([C, 2l, 2k]) on these inputs. The
     measures count only the mask columns in use (the rest is zero
-    padding to 128) and the bins they cover."""
+    padding to 128), and their spectrum reads and operations only the bins
+    those columns cover (``extent``, the part kernel A is told to
+    multiply, does not change the function)."""
     import torch
 
     from fdc_tpu_torch.ops.extract_fused import gather_pairs
@@ -646,51 +693,65 @@ def extract_work(spec, starts, mats, masks=None):
                 cmp_close("extract_shared"))
     used = (masks != 0).any(0)
     cm = int(used.sum())
-    bins |= set(torch.nonzero((masks[:, used] != 0).any(1))
-                .flatten().tolist())
+    m_bins = torch.nonzero((masks[:, used] != 0).any(1)).flatten().tolist()
+    bins |= set(m_bins)
     sf = torch.view_as_real(spec)
     sq = sf[..., 0] ** 2 + sf[..., 1] ** 2
     return (f"{what} + powers [{rows}, {cm} of {masks.shape[1]}]",
             len(bins) * rows * 8 + nbytes((starts, mats)) + n * cm * 4
             + out_bytes + rows * cm * 4,
-            flops + 2.0 * rows * n * cm,
+            flops + 2.0 * rows * len(m_bins) * cm,
             lambda: (torch.matmul(z, mats), torch.matmul(sq, masks)),
             cmp_measured)
 
 
-def fft_case(what, blocks, kern, plain):
-    """Kernel F on [B, N] blocks. The bound is the function's, a shifted
-    and scaled DFT: the blocks read and the spectrum written once, and an
-    FFT's 5 N log2 N fp32 operations a block (not the 8 N (m1 + m2) of
-    the DFT-as-product form F computes it by); the library call is
-    ``torch.fft.fft`` on the same blocks (no shift, no scale)."""
+def fft_case(what, blocks, kern, plain, out=None):
+    """Kernel F on [B, N] blocks (into ``out`` if given). The bound is the
+    function's, a shifted and scaled DFT: the blocks read and the spectrum
+    written once, and an FFT's 5 N log2 N fp32 operations a block; the
+    library call is ``torch.fft.fft`` on the same blocks (no shift, no
+    scale)."""
     import torch
 
     rows, n = blocks.shape
-    return case("forward_fft", lambda: kern(blocks), lambda: plain(blocks),
-                cmp_close("forward_fft", 0.0, FFT_TOL), what,
-                2 * blocks.numel() * 8,
+    return case("forward_fft", lambda: kern(blocks, out=out),
+                lambda: plain(blocks), cmp_close("forward_fft", 0.0, FFT_TOL),
+                what, 2 * blocks.numel() * 8,
                 5.0 * n * math.log2(n) * rows,
                 lambda: torch.fft.fft(blocks))
 
 
 def fft_cases():
-    """Kernel F at every N it covers, B = 64 blocks of seeded noise."""
+    """Kernel F at every N it covers, B = 64 blocks of seeded noise, and
+    at [512, 4096] into rows 1..B of an extended spectrum (row 0 must
+    keep its value)."""
     import torch
 
     from fdc_tpu_torch.ops import fft
 
     rng = np.random.default_rng(4)
-    out = []
-    for log2n in range(8, 15):
-        n = 1 << log2n
-        x = (rng.standard_normal((64, n))
-             + 1j * rng.standard_normal((64, n))).astype(np.complex64)
-        out.append(fft_case(f"N={n} [64, {n}]",
-                            torch.from_numpy(x).to("cuda"),
-                            fft.forward_spectrum_four_step,
-                            fft.forward_spectrum_four_step_plain))
-    return out
+
+    def noise(b, n):
+        return torch.from_numpy(
+            (rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))
+             ).astype(np.complex64)).to("cuda")
+
+    out = [fft_case(f"N={n} [64, {n}]", noise(64, n),
+                    fft.forward_spectrum_four_step,
+                    fft.forward_spectrum_four_step_plain)
+           for n in (1 << e for e in range(8, 15))]
+    ext = torch.full((513, 4096), 3 + 4j, dtype=torch.complex64,
+                     device="cuda")
+    cs = fft_case("into spec_ext[1:] [512, 4096]", noise(512, 4096),
+                  fft.forward_spectrum_four_step,
+                  fft.forward_spectrum_four_step_plain, out=ext[1:])
+    cmp = cs["cmp"]
+
+    def cmp_ext(a, b):
+        assert bool((ext[0] == 3 + 4j).all()), "row 0 of spec_ext written"
+        return cmp(a, b)
+    cs["cmp"] = cmp_ext
+    return out + [cs]
 
 
 def probe_cases():
@@ -712,6 +773,148 @@ def probe_cases():
             f"{name} {[list(v.shape) for v in ins]} -> {list(res.shape)}",
             nbytes(ins) + nbytes(res), probes.probe_flops(name)))
     return out
+
+
+# kernel A's edge cases: (rows, N, l, C, odd starts, mask columns in use
+# of 128, the masks' extent passed, fold R); the output is 1.5 l pairs
+# wide
+EXTRACT_EDGES = {
+    "odd starts": (37, 1024, 64, 6, True, 0, False, 0),
+    "513 rows, nout 96": (513, 4096, 64, 3, True, 0, False, 0),
+    "513 rows, nout 192": (513, 4096, 128, 5, False, 0, False, 0),
+    "C = 1, K = 2048 + 54 of 128 measures": (512, 4096, 1024, 1, False, 54,
+                                             True, 0),
+    "C = 64, 34 of 128 measures": (512, 4096, 64, 64, True, 34, True, 0),
+    "C = 64, 34 of 128 measures, whole masks": (512, 4096, 64, 64, True, 34,
+                                                False, 0),
+    "fold R = 2, odd starts": (513, 4096, 128, 5, True, 0, False, 2),
+    "fold R = 4, C = 1, K = 2048": (512, 4096, 1024, 1, True, 0, False, 4),
+}
+
+# kernel A's buckets on the paths at B = 512, for the plan sweep: (rows,
+# l, C, fold R, mask columns in use of 128)
+PLAN_BUCKETS = {
+    "flagship": (512, 64, 64, 0, 34),
+    "flagship burst": (513, 128, 1, 0, 0),
+    "example": (512, 1024, 1, 0, 54),
+    "powact32": (513, 128, 32, 0, 0),
+    "dama16": (512, 256, 16, 4, 0),
+}
+
+
+def kernel_a_inputs(rng, rows, n, l, c, odd, used):
+    """Seeded inputs of kernel A on the card: [rows, n] spectra, C sorted
+    starts (all odd or all even), a folded [2l, 1.5 l * 2] matrix, and
+    [n, 128] band masks with ``used`` leading columns in use (None if
+    ``used`` is 0)."""
+    import torch
+
+    from fdc_tpu_torch.ops.fft import _rr_idft_matrix, interleave_rows
+
+    spec = (rng.standard_normal((rows, n))
+            + 1j * rng.standard_normal((rows, n))).astype(np.complex64)
+    starts = (np.sort(rng.choice((n - l) // 2, c, replace=False)) * 2
+              + int(odd)).astype(np.int32)
+    win = np.tile(rng.random(l).astype(np.float32) + 0.1, 2)
+    mat = interleave_rows((win[:, None] * _rr_idft_matrix(
+        l, l // 4, True, float(l), pairs=True)).astype(np.float32))
+    masks = None
+    if used:
+        masks = np.zeros((n, 128), np.float32)
+        for col in range(used):
+            lo = int(rng.integers(n // 8, n - n // 8))
+            masks[lo:lo + int(rng.integers(4, 40)), col] = 1.0
+    return [torch.from_numpy(v).to("cuda") if v is not None else None
+            for v in (spec, starts, mat, masks)]
+
+
+def extract_edge_cases():
+    """Kernel A (and its fold) on EXTRACT_EDGES: odd starts (8-byte
+    copies), rows and nout that are no multiple of a tile, the example's
+    C = 1 bucket (a k split), masks with some columns in use, with their
+    extent (the main path's route) and without it (the whole masks); the
+    padding columns must come back exactly 0. Seeded."""
+    from fdc_tpu_torch.ops import extract_fused
+
+    rng = np.random.default_rng(5)
+    out = []
+    for what, (rows, n, l, c, odd, used, ext, r) in EXTRACT_EDGES.items():
+        spec, starts, mat, masks = kernel_a_inputs(rng, rows, n, l, c, odd,
+                                                   used)
+        a, kw = (spec, starts, mat), {}
+        name = "extract_shared_fold" if r else "extract_shared"
+        if r:
+            a += (r,)
+        elif used:
+            a += (masks,)
+            if ext:
+                kw["extent"] = extract_fused.mask_extent(masks.cpu())
+        cs = call_case(f"edge: {what}", name, getattr(extract_fused, name),
+                       getattr(extract_fused, name + "_plain"), a, kw)
+        if used:
+            cmp = cs["cmp"]
+
+            def cmp_pad(x, y, cmp=cmp, used=used):
+                assert not bool(x[1][:, used:].any()), "padding powers != 0"
+                return cmp(x, y)
+            cs["cmp"] = cmp_pad
+        out.append(cs)
+    return out
+
+
+def plan_sweep(card):
+    """Kernel A on PLAN_BUCKETS (seeded inputs at the paths' shapes) under
+    every tile width of TILE_N and 1, 2, 4 or 8 k splits, in place of
+    ``extract_fused.gemm_plan``'s choice: each plan held against the plain
+    version and timed by graph_time (device time), beside the choice and
+    the library call. The check of gemm_plan's rule on this card."""
+    from unittest import mock
+
+    from fdc_tpu_torch.ops import extract_fused as ef
+
+    rng = np.random.default_rng(6)
+    for name, (rows, l, c, r, used) in PLAN_BUCKETS.items():
+        spec, starts, mat, masks = kernel_a_inputs(rng, rows, 4096, l, c,
+                                                   False, used)
+        if r:
+            def run():
+                return ef.extract_shared_fold(spec, starts, mat, r)
+            ref = ef.extract_shared_fold_plain(spec, starts, mat, r)
+            _, _, _, library, _ = extract_work(spec, starts, mat)
+            cmp = cmp_close("extract_shared_fold")
+        else:
+            a = (spec, starts, mat) + ((masks,) if used else ())
+            kw = {"extent": ef.mask_extent(masks.cpu())} if used else {}
+
+            def run():
+                return ef.extract_shared(*a, **kw)
+            ref = ef.extract_shared_plain(*a)
+            _, _, _, library, cmp = extract_work(*a)
+        m, k, nout = c * rows, mat.shape[0], mat.shape[1]
+        chosen = ef.gemm_plan(m, nout, k)
+        stages = k // ef.BK
+        plans = {chosen}
+        for bn in ef.TILE_N:
+            for want in (1, 2, 4, 8):
+                if want <= max(1, stages // ef.MIN_SPLIT_STAGES):
+                    chunk = -(-stages // want)
+                    plans.add((ef.TILE_M, bn, -(-stages // chunk),
+                               chunk * ef.BK))
+        times = []
+        for plan in sorted(plans):
+            with mock.patch.object(ef, "gemm_plan", lambda *_, p=plan: p):
+                cmp(run(), ref)
+                ms = graph_time(run)
+            times.append((math.inf if ms is None else ms, plan))
+        times.sort()
+        rank = [p for _, p in times].index(chosen) + 1
+        log(f"phase 6: {name} [{m}, {k}] x [{k}, {nout}]"
+            f"{f' + {used} measure columns' if used else ''}"
+            f"{f', fold R={r}' if r else ''}: gemm_plan {chosen[:3]} "
+            f"{dict((p, t) for t, p in times)[chosen]:.4f} ms, rank {rank} "
+            f"of {len(times)}; library {fmt_ms(graph_time(library))}; "
+            f"fastest: " + ", ".join(f"{p[0]}x{p[1]}/{p[2]} {t:.4f} ms"
+                                     for t, p in times[:4]) + f" {card}")
 
 
 def extract_proto_case(fdc, x):
@@ -1157,7 +1360,8 @@ def main() -> int:
     log(f"phase 1: kernels built in {time.perf_counter() - t:.1f} s "
         f"(nvcc {info['seconds']:.1f} s) -> {info['path']}")
     for line in info.get("ptxas", "").splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if ("registers" in line or "spill" in line
+                or "Compiling entry" in line):
             log("  ptxas:", line.strip())
 
     def phase_done(n):
@@ -1185,7 +1389,7 @@ def main() -> int:
     cases.append(powact_edge_case(paths["powact32"]["fdc"]))
     cases.append(extract_proto_case(paths["flagship"]["fdc"],
                                     paths["flagship"]["x"]))
-    cases += fft_cases() + probe_cases()
+    cases += fft_cases() + probe_cases() + extract_edge_cases()
     summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                    "bound_ms": 0.0, "bound_by": "bytes", "bound_max": 0.0,
                    "library_ms": 0.0, "has_library": True}
@@ -1245,10 +1449,18 @@ def main() -> int:
         if "unfolded" in cs:
             lib += (f", unfolded A + apply_phase_pairs "
                     f"{cuda_time(cs['unfolded'], 50):.4f} ms")
+        if cs["name"] in GRAPHED:
+            lib += (f"; device (graph): kernel "
+                    f"{fmt_ms(graph_time(cs['kern']))}, library "
+                    f"{fmt_ms(graph_time(cs['library']))}")
         log(f"phase 5: {cs['name']} {cs['shape']}: kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms{lib}, bound {cs['bound_ms']:.5f} ms "
             f"{card}")
     phase_done(5)
+
+    # -- phase 6: kernel A's tile and split rule against the others --------
+    plan_sweep(card)
+    phase_done(6)
     log(f"total: {time.perf_counter() - t_run:.1f} s wall")
 
     rows = []

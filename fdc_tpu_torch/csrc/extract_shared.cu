@@ -1,4 +1,4 @@
-// Shared-matrix bucket extraction with optional power measures.
+// Shared-matrix bucket extraction with optional power measures (kernel A).
 //
 // Replaces the Pallas kernels fdc_tpu/ops/extract_pallas.py
 // _kernel_shared_measured and _kernel_shared (fused_extract_shared),
@@ -18,101 +18,146 @@
 // boundary; reading the interleaved complex64 spectrum directly needs no
 // planar copy.
 //
-// What bounds it on the H100: the flagship throughput bucket is a
-// [C*R, 2l] x [2l, 2k] = [32768, 128] x [128, 96] product (0.8 GFLOP fp32)
-// over ~13 MB of gathered spectrum and 12.6 MB of output; the measures are
-// a [512, 4096] x [4096, 128] product (0.54 GFLOP). Both sit near the
-// fp32 FFMA ridge (no TF32: it would cost ~40 dB of output SNR), so the
-// kernel is a plain register-tiled fp32 FFMA GEMM whose A-tile loader
-// gathers rows at the static starts straight from device memory — the
-// gathered [C, R, 2l] operand never exists in device memory.
+// What bounds it on the H100: fp32 FFMA (no TF32: it would cost ~40 dB
+// of output SNR). The example's bucket with its measures is [512, 2048] x
+// [2048, 1536] plus [512, 1938] x [1938, 54]: the measures need only the
+// 54 mask columns in use of 128 and the 1938 bins they cover. That is
+// 3.33 GFLOP, 49.7 us at 67 TFLOP/s, over 26 MB, 8 us at 3.35 TB/s. The
+// flagship's is [32768, 128] x [128, 96] plus 34 measure columns over 412
+// bins (0.82 GFLOP, 12.2 us). An FFMA GEMM reaches that rate only if
+// shared-memory loads, copies and barriers hide behind its FFMAs and its
+// grid fills the 132 SMs evenly.
 //
-// What the design does about it (the GEMM is tile_gemm.cuh, shared with
-// extract_static.cu): 64x64 output tiles, BK=16 k-steps staged
-// in shared memory, a 4x4 micro-tile per thread (256 threads). The
-// measures' long contraction (N = 4096) over few output tiles is split
-// along k into partial sums that a second pass adds in a fixed order
-// (deterministic, no atomics), which fills the SMs. The mask matrix and
-// the burst bucket's 256 x 192 matrix never need to fit in shared memory
-// whole: they stream through it tile by tile. wgmma/TMA pipelines are
-// later work.
-//
-// The phase fold (fold_r = R in {2, 4}; 0 or 1 = none): the overlap-save
-// phase compensation of a throughput bucket whose row 0 has a global
-// block index that is a multiple of R. Every factor is a quarter turn, so
-// the GEMM's store epilogue applies it as a pair swap between neighbouring
-// lanes (__shfl_xor_sync) and a sign (tile_gemm.cuh, FOLD_R): no extra
-// pass over the [C, R, 2k] output and no cos/sin round-off. It adds a few
-// register operations per output float to a kernel bound by its FFMAs.
+// What the design does about it: gather_gemm.cuh, an 8 x 8 micro-tile a
+// thread and a 3-stage cp.async ring, its A loader gathering the slices
+// (or squaring the spectrum, for the measures) straight from device
+// memory. ops/extract_fused.py picks the tile and any k split per call
+// from the shapes (gemm_plan): tiles of 128 rows by 96, 128 or 64 columns
+// (nout padded by at most an eighth where one of them allows), split
+// along k into the most ranges whose grid still runs in one wave (two
+// CTAs an SM). The measures run on the same body over only the mask
+// columns and the k range the caller names (mask_extent, computed where
+// the masks are built; the rest of the mask matrix is zero padding:
+// exact zeros), split along k. Split partial sums are added in split
+// order by one more launch, sum_splits, for the extraction and the
+// measures together (no atomics); it writes the measures' unused columns
+// as zeros. The phase fold (fold_r = R in {2, 4}; 0 or 1 = none) is the
+// GEMM's store epilogue: a select and a negation inside the thread.
 
 #include <cuda_runtime.h>
 
-#include "tile_gemm.cuh"
+#include "gather_gemm.cuh"
+#include "smem_optin.cuh"
 
 namespace {
 
-using fdc_gemm::BK;
-using fdc_gemm::BM;
-using fdc_gemm::BN;
-using fdc_gemm::NT;
-using fdc_gemm::tile_gemm;
+using fdc_gather::Args;
+using fdc_gather::gather_gemm;
+using fdc_gather::Tile;
 
-// powers = sum over the k-split partials, in split order
-__global__ void sum_splits(const float* __restrict__ part, int splits,
-                           int len, float* __restrict__ out) {
+template <int BM, int BN, bool POWER, int FOLD_R>
+int run(const Args& a, int splits, cudaStream_t st) {
+  constexpr int bytes = Tile<BM, BN, POWER>::SMEM;
+  auto* kern = gather_gemm<BM, BN, POWER, FOLD_R>;
+  static bool done[64] = {};
+  const cudaError_t err = allow_smem(kern, bytes, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((a.m + BM - 1) / BM, (a.nout + BN - 1) / BN, splits);
+  kern<<<grid, Tile<BM, BN, POWER>::NT, bytes, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int FOLD_R>
+int run_tile(const Args& a, int bm, int bn, int splits, cudaStream_t st) {
+  if (bm != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (bn == 96) return run<128, 96, false, FOLD_R>(a, splits, st);
+  if (bn == 128) return run<128, 128, false, FOLD_R>(a, splits, st);
+  if (bn == 64) return run<128, 64, false, FOLD_R>(a, splits, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the split sums, in split order: blockIdx.y = 0 the extraction's
+// (ext_splits > 1), 1 the measures' (into [rows, cm], columns from cu on
+// zero)
+__global__ void sum_splits(const float* __restrict__ ext_part, int ext_splits,
+                           int ext_len, float* __restrict__ ext_out,
+                           const float* __restrict__ m_part, int m_splits,
+                           int rows, int cu, int cm,
+                           float* __restrict__ powers) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= len) return;
+  if (blockIdx.y == 0) {
+    if (ext_splits < 2 || i >= ext_len) return;
+    float s = 0.0f;
+    for (int z = 0; z < ext_splits; ++z)
+      s += ext_part[static_cast<size_t>(z) * ext_len + i];
+    ext_out[i] = s;
+    return;
+  }
+  if (powers == nullptr || i >= rows * cm) return;
+  const int r = i / cm;
+  const int c = i - r * cm;
   float s = 0.0f;
-  for (int z = 0; z < splits; ++z) s += part[static_cast<size_t>(z) * len + i];
-  out[i] = s;
+  if (c < cu)
+    for (int z = 0; z < m_splits; ++z)
+      s += m_part[(static_cast<size_t>(z) * rows + r) * cu + c];
+  powers[i] = s;
 }
 
 }  // namespace
 
 // spec: complex64 [rows, n]; starts: int32 [c] (device); mat: float32
 // [k2, nout] (rows interleaved re/im); out: float32 [c, rows, nout].
-// masks (nullable): float32 [n, cm]; partial: float32 [splits, rows, cm]
-// scratch; powers: float32 [rows, cm]. fold_r: the quarter-turn phase
-// fold's R (0 or 1: none; 2 or 4; anything else is refused).
+// The extraction runs on (bm, bn) tiles in `splits` k ranges of k_chunk
+// floats; with splits > 1 its partial sums go to part [splits, c * rows,
+// nout]. fold_r: the quarter-turn phase fold's R (0 or 1: none; 2 or 4;
+// anything else is refused).
+// masks (nullable): float32 [n, cm]; the measures use its columns
+// [0, cu) and rows [k_lo, k_hi) (k_lo a multiple of 16), on 64 x 64
+// tiles in m_splits k ranges of m_chunk bins, partial sums in m_part
+// [m_splits, rows, cu]; powers: float32 [rows, cm].
 extern "C" int fdc_extract_shared(
     const void* spec, int rows, int n, const void* starts, int c,
-    const void* mat, int k2, int nout, void* out,
-    const void* masks, int cm, void* partial, int splits, void* powers,
-    int fold_r, void* stream) {
+    const void* mat, int k2, int nout, void* out, int bm, int bn, int splits,
+    int k_chunk, void* part, int fold_r, const void* masks, int cm, int cu,
+    int k_lo, int k_hi, int m_splits, int m_chunk, void* m_part,
+    void* powers, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sp = static_cast<const float*>(spec);
-  const int* s = static_cast<const int*>(starts);
-  const float* b = static_cast<const float*>(mat);
-  float* o = static_cast<float*>(out);
-  const int m = c * rows;
-  dim3 grid((m + BM - 1) / BM, (nout + BN - 1) / BN, 1);
+  Args a{sp, rows, n, static_cast<const int*>(starts),
+         static_cast<const float*>(mat), nout, c * rows, nout, 0, k2,
+         k_chunk, static_cast<float*>(splits > 1 ? part : out)};
+  int rc;
   switch (fold_r) {
     case 0:
     case 1:
-      tile_gemm<0><<<grid, NT, 0, st>>>(sp, rows, n, s, b, k2, nout, m, k2,
-                                         o);
+      rc = run_tile<0>(a, bm, bn, splits, st);
       break;
     case 2:
-      tile_gemm<0, 2><<<grid, NT, 0, st>>>(sp, rows, n, s, b, k2, nout, m,
-                                            k2, o);
+      rc = run_tile<2>(a, bm, bn, splits, st);
       break;
     case 4:
-      tile_gemm<0, 4><<<grid, NT, 0, st>>>(sp, rows, n, s, b, k2, nout, m,
-                                            k2, o);
+      rc = run_tile<4>(a, bm, bn, splits, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (masks != nullptr) {
-    const int chunk = ((n + splits - 1) / splits + BK - 1) / BK * BK;
-    dim3 g2((rows + BM - 1) / BM, (cm + BN - 1) / BN, splits);
-    tile_gemm<1><<<g2, NT, 0, st>>>(
-        sp, rows, n, nullptr, static_cast<const float*>(masks), n, cm,
-        rows, chunk, static_cast<float*>(partial));
-    const int len = rows * cm;
-    sum_splits<<<(len + 255) / 256, 256, 0, st>>>(
-        static_cast<const float*>(partial), splits, len,
-        static_cast<float*>(powers));
+  if (rc != 0) return rc;
+  if (masks != nullptr && cu > 0) {
+    Args mp{sp, rows, n, nullptr, static_cast<const float*>(masks), cm,
+            rows, cu, k_lo, k_hi, m_chunk, static_cast<float*>(m_part)};
+    rc = run<64, 64, true, 0>(mp, m_splits, st);
+    if (rc != 0) return rc;
+  }
+  const int ext_len = splits > 1 ? c * rows * nout : 0;
+  const int m_len = masks != nullptr ? rows * cm : 0;
+  const int len = ext_len > m_len ? ext_len : m_len;
+  if (len > 0) {
+    dim3 grid((len + 255) / 256, m_len > 0 ? 2 : 1);
+    sum_splits<<<grid, 256, 0, st>>>(
+        static_cast<const float*>(part), splits, ext_len,
+        static_cast<float*>(out), static_cast<const float*>(m_part),
+        masks != nullptr && cu > 0 ? m_splits : 0, rows, cu, cm,
+        static_cast<float*>(masks != nullptr ? powers : nullptr));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,8 +22,8 @@
 // kernel's VMEM gate (fits_vmem) and its XLA fallback do not apply: the
 // matrices stream through shared memory tile by tile.
 //
-// What the design does about it: kernel A's register-tiled GEMM
-// (tile_gemm.cuh) in its per-channel mode — grid z walks the channels,
+// What the design does about it: the register-tiled GEMM of
+// tile_gemm.cuh — grid z walks the channels,
 // each channel's A-tile loader gathers rows at its static start straight
 // from the spectrum and its B tiles come from its own matrix, so the
 // gathered [C, R, 2l] operand never exists in device memory. The ragged
@@ -41,9 +41,9 @@ extern "C" int fdc_extract_static(
     const void* mats, int k2, int nout, void* out, void* stream) {
   using namespace fdc_gemm;
   dim3 grid((rows + BM - 1) / BM, (nout + BN - 1) / BN, c);
-  tile_gemm<2><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  tile_gemm<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(spec), rows, n,
       static_cast<const int*>(starts), static_cast<const float*>(mats), k2,
-      nout, rows, k2, static_cast<float*>(out));
+      nout, rows, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,8 +40,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (csrc/*.cu)
 _SIGNATURES = {
-    "fdc_extract_shared": [_P, _I, _I, _P, _I, _P, _I, _I, _P,
-                           _P, _I, _P, _I, _P, _I, _P],
+    "fdc_extract_shared": [_P, _I, _I, _P, _I, _P, _I, _I, _P, _I, _I, _I,
+                           _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                           _P],
     "fdc_extract_static": [_P, _I, _I, _P, _I, _P, _I, _I, _P, _P],
     "fdc_greedy_accept": [_P, _P, _P, _P, _I, _I, _P],
     "fdc_slot_lifecycle": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -49,7 +50,7 @@ _SIGNATURES = {
                            _P, _P, _P, _P, _I, _P],
     "fdc_powact": [_P, _I, _I, _P, _P, _P, _P, _F, _I, _P, _P, _P, _P,
                    _P, _P, _P, _P],
-    "fdc_forward_fft": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "fdc_forward_fft": [_P, _I, _I, _P, _P, _P],
     "fdc_tile_probe": [_I, _P, _P, _P, _P, _I, _P, _P],
 }
 
@@ -134,4 +135,8 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` as an integer handle."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -53,6 +53,7 @@ from fdc_tpu_torch.ops.extract import (
     extract_bucket_measured,
     extract_bucket_phased,
 )
+from fdc_tpu_torch.ops.extract_fused import mask_extent
 from fdc_tpu_torch.ops.fft import FOUR_STEP_MAX_N, forward_spectrum
 from fdc_tpu_torch.ops.framing import frame_blocks
 from fdc_tpu_torch.runtime.emission import (
@@ -297,6 +298,7 @@ class FrequencyDomainChannelizer(nn.Module):
         # ~1e-7 rel, far inside the dB-scale detection thresholds.
         self.register_buffer("measure_masks", None)
         self._measure_cols = {}
+        self._measure_extent = None
         if (self.power_bank or len(self.segments)) and self.throughput:
             cols = []
             off = 0
@@ -320,6 +322,9 @@ class FrequencyDomainChannelizer(nn.Module):
             if pad:
                 mm = np.pad(mm, ((0, 0), (0, pad)))
             self.register_buffer("measure_masks", torch.from_numpy(mm))
+            # the used columns and the bins they cover: kernel A skips the
+            # zero padding and the bins no measure reads
+            self._measure_extent = mask_extent(mm)
 
         # -- streaming state ---------------------------------------------------
         self._carry = None
@@ -366,21 +371,30 @@ class FrequencyDomainChannelizer(nn.Module):
         index of the first block. Returns (new_carry, outputs)."""
         cfg = self.config
         blocks, hist = frame_blocks(x, carry["hist"], cfg.blocksize)
-        spec = forward_spectrum(blocks, use_mxu=cfg.use_mxu_fft)  # [B, N]
+        # the front end writes rows 1..B of the extended spectrum in place
+        # (row 0: the previous batch's last row), so no copy joins them
+        spec_ext = torch.empty((blocks.shape[0] + 1, cfg.blocksize),
+                               dtype=torch.complex64, device=blocks.device)
+        spec_ext[0] = carry["prev_spec"]
+        forward_spectrum(blocks, use_mxu=cfg.use_mxu_fft, out=spec_ext[1:])
         new_carry = dict(carry)
         new_carry["hist"] = hist
-        return self._step_from_spec(new_carry, spec, t0)
+        return self._step_from_spec(new_carry, spec_ext, t0)
 
     def _device_step_spectra(self, carry, spec: torch.Tensor, t0: int):
         """Pre-FFT'd step (the reference's vector-input mode, reference:
         python/FrequencyDomainChannelizer.py:201-216): spec is [B, N]
         complex64, already normalized fftshifted spectra; the framing
         history is left as it is."""
-        return self._step_from_spec(dict(carry), spec, t0)
+        spec_ext = torch.cat([carry["prev_spec"][None], spec])
+        return self._step_from_spec(dict(carry), spec_ext, t0)
 
-    def _step_from_spec(self, new_carry, spec, t0):
+    def _step_from_spec(self, new_carry, spec_ext, t0):
+        """The step after the front end. ``spec_ext``: [B + 1, N], the
+        carried last row of the previous batch, then this batch's
+        spectra."""
         cfg = self.config
-        spec_ext = torch.cat([new_carry["prev_spec"][None], spec])
+        spec = spec_ext[1:]
         new_carry["prev_spec"] = spec[-1].clone()
 
         out, pa_powers, pa_ext, seg_powers, seg_packed = (
@@ -432,7 +446,8 @@ class FrequencyDomainChannelizer(nn.Module):
                     # the detection measures ride the first non-fused
                     # shared-matrix bucket's kernel A launch
                     y, powers_fused = extract_bucket_measured(
-                        spec, starts, folded, r, self.measure_masks
+                        spec, starts, folded, r, self.measure_masks,
+                        self._measure_extent
                     )
                 else:
                     y = extract_bucket_phased(spec, starts, folded, r)

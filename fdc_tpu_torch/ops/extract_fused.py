@@ -21,12 +21,17 @@ quarter-turn fold (the ``fold_phase_r`` branch of ``_kernel_shared``):
 the phase of row r of channel c is an exact quarter turn, applied in
 kernel A's store epilogue. Elsewhere (measured buckets, per-channel
 tables, R = 8) it stays outside (``extract.apply_phase_pairs``). The CUDA
-sources are ``csrc/extract_shared.cu`` and ``csrc/extract_static.cu``
-(one GEMM, ``csrc/tile_gemm.cuh``).
+sources are ``csrc/extract_shared.cu`` (on the pipelined GEMM of
+``csrc/gather_gemm.cuh``, its tiles and k splits chosen per call by
+:func:`gemm_plan` and :func:`measure_plan`) and ``csrc/extract_static.cu``
+(on ``csrc/tile_gemm.cuh``).
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from fdc_tpu_torch import kernels
@@ -38,12 +43,82 @@ __all__ = [
     "extract_shared_fold_plain",
     "fold_quarter_turns",
     "gather_pairs",
+    "gemm_plan",
+    "mask_extent",
+    "measure_plan",
     "extract_static",
     "extract_static_plain",
 ]
 
-# k-split of the measures' N-long contraction (csrc/extract_shared.cu)
-_POWER_SPLITS = 16
+# kernel A's GEMM (csrc/gather_gemm.cuh): the SMs, k a pipeline stage,
+# the CTA tile's height and its widths in order of preference (8 x 8 a
+# thread). Two 128 x 96 CTAs (192 threads at ~168 registers each) reside
+# on an SM, so a grid of up to WAVE of them runs in one wave.
+SMS = 132
+BK = 16
+TILE_M = 128
+TILE_N = (96, 128, 64)
+WAVE = 2 * SMS
+# a k split keeps at least this many stages (one is all pipeline fill)
+MIN_SPLIT_STAGES = 2
+# the measures' tile (power mode), rows x mask columns; their k splits
+# aim at four CTAs an SM (a 64 x 64 tile is two warps) of at least four
+# stages each
+MEASURE_TILE = (64, 64)
+MEASURE_CTAS = 4 * SMS
+MEASURE_MIN_STAGES = 4
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(m: int, nout: int, k: int):
+    """Kernel A's extraction tiles for an [m, k] x [k, nout] product:
+    (bm, bn, splits, k_chunk).
+
+    One tile height, TILE_M; the first width of TILE_N that pads nout by
+    at most an eighth (else the one that pads least); and the most k
+    splits, each of at least MIN_SPLIT_STAGES stages, whose grid still
+    runs in one wave of WAVE CTAs. A grid of a wave or more is not split.
+    The splits' partial sums are added in split order (no atomics)."""
+    def pad(bn):
+        return -(-nout // bn) * bn - nout
+
+    bn = next((w for w in TILE_N if 8 * pad(w) <= nout),
+              min(TILE_N, key=pad))
+    tiles = -(-m // TILE_M) * -(-nout // bn)
+    stages = -(-k // BK)
+    want = max(1, min(WAVE // tiles, stages // MIN_SPLIT_STAGES))
+    chunk = -(-stages // want)
+    return TILE_M, bn, -(-stages // chunk), chunk * BK
+
+
+@functools.lru_cache(maxsize=None)
+def measure_plan(rows: int, cols: int, k_lo: int, k_hi: int):
+    """The measures' k splits over mask rows [k_lo, k_hi) (k_lo a multiple
+    of BK) for ``cols`` mask columns in use: (splits, k_chunk), ranges of
+    equal whole stages, the longest that still bring the grid to
+    MEASURE_CTAS CTAs, but no shorter than MEASURE_MIN_STAGES stages."""
+    bm, bn = MEASURE_TILE
+    tiles = -(-rows // bm) * -(-cols // bn)
+    need = -(-MEASURE_CTAS // tiles)
+    stages = -(-(k_hi - k_lo) // BK)
+    chunk = max(MEASURE_MIN_STAGES, stages // need) * BK
+    return -(-(k_hi - k_lo) // chunk), chunk
+
+
+def mask_extent(masks: np.ndarray):
+    """(cols, k_lo, k_hi) of [N, Cm] measure masks (host memory): the
+    columns up to the last non-zero one, and the rows [k_lo, k_hi) holding
+    their non-zero entries (k_lo rounded down to a multiple of BK).
+    Everything outside is exact zeros, which kernel A skips when it is
+    given this extent. The channelizer computes it where it builds its
+    masks."""
+    nz = np.asarray(masks) != 0
+    used = np.flatnonzero(nz.any(0))
+    if not used.size:
+        return (0, 0, 0)
+    cols = int(used[-1]) + 1
+    rows = np.flatnonzero(nz[:, :cols].any(1))
+    return (cols, int(rows[0]) // BK * BK, int(rows[-1]) + 1)
 
 
 def gather_pairs(spec, starts, l: int):
@@ -55,9 +130,9 @@ def gather_pairs(spec, starts, l: int):
                                                   2 * l)
 
 
-def extract_shared_plain(spec, starts, mat, masks=None):
+def extract_shared_plain(spec, starts, mat, masks=None, extent=None):
     """Plain PyTorch version of :func:`extract_shared` (same arguments and
-    results)."""
+    results; the whole of ``masks`` is multiplied, ``extent`` unused)."""
     z = gather_pairs(spec, starts, mat.shape[0] // 2)
     out = torch.matmul(z, mat).reshape(*z.shape[:2], -1, 2)
     if masks is None:
@@ -67,7 +142,7 @@ def extract_shared_plain(spec, starts, mat, masks=None):
     return out, torch.matmul(sq, masks)
 
 
-def extract_shared(spec, starts, mat, masks=None):
+def extract_shared(spec, starts, mat, masks=None, extent=None):
     """Extract C equal-window channels from [R, N] complex64 spectra.
 
     Args:
@@ -76,6 +151,9 @@ def extract_shared(spec, starts, mat, masks=None):
         tables are validated where they are built).
       mat: [2l, 2k] float32 folded matrix, rows interleaved (re, im).
       masks: optional [N, Cm] float32 measure columns.
+      extent: optional :func:`mask_extent` of ``masks``: the kernel then
+        multiplies only the columns and rows it names (the rest must be
+        zeros); without it, the whole of ``masks``.
 
     Returns out [C, R, k, 2] float32, and with ``masks`` the tuple
     (out, powers [R, Cm]). CPU tensors take the plain version; CUDA
@@ -83,7 +161,7 @@ def extract_shared(spec, starts, mat, masks=None):
     """
     if spec.device.type == "cpu":
         return extract_shared_plain(spec, starts, mat, masks)
-    out = _launch_shared(spec, starts, mat, masks, 0)
+    out = _launch_shared(spec, starts, mat, masks, 0, extent)
     extract_shared.launches += 1
     return out
 
@@ -130,7 +208,7 @@ def extract_shared_fold(spec, starts, mat, r: int):
 extract_shared_fold.launches = 0
 
 
-def _launch_shared(spec, starts, mat, masks, fold_r: int):
+def _launch_shared(spec, starts, mat, masks, fold_r: int, extent=None):
     """Check the inputs of kernel A and launch it (the C entry point
     ``fdc_extract_shared``); returns out or (out, powers)."""
     rows, n = spec.shape
@@ -140,30 +218,54 @@ def _launch_shared(spec, starts, mat, masks, fold_r: int):
             or mat.dtype != torch.float32 or l2 % 2 or k2 % 2):
         raise TypeError("extract_shared: complex64 spec, int32 starts, "
                         "float32 [2l, 2k] matrix expected")
+    where = spec.get_device()
     for t in (spec, starts, mat) + ((masks,) if masks is not None else ()):
-        if t.device != spec.device or not t.is_contiguous():
+        if t.get_device() != where or not t.is_contiguous():
             raise ValueError("extract_shared: contiguous tensors on one "
                              "device expected")
+    if spec.data_ptr() % 8 or mat.data_ptr() % 8:
+        raise ValueError("extract_shared: 8-byte aligned tensors expected")
+    dev = spec.device
+    m = c * rows
     out = torch.empty((c, rows, k2 // 2, 2), dtype=torch.float32,
-                      device=spec.device)
-    powers = partial = None
-    cm = 0
+                      device=dev)
+    bm, bn, splits, k_chunk = gemm_plan(m, k2, l2)
+    cm = cols = k_lo = k_hi = m_splits = m_chunk = 0
     if masks is not None:
-        if masks.dtype != torch.float32 or masks.shape[0] != n:
-            raise ValueError("extract_shared: masks must be float32 [N, Cm]")
+        if (masks.dtype != torch.float32 or masks.dim() != 2
+                or masks.shape[0] != n or masks.shape[1] % 2
+                or masks.data_ptr() % 8):
+            raise ValueError("extract_shared: masks must be float32 [N, Cm], "
+                             "Cm even, 8-byte aligned")
         cm = masks.shape[1]
-        powers = torch.empty((rows, cm), dtype=torch.float32,
-                             device=spec.device)
-        partial = torch.empty((_POWER_SPLITS, rows, cm),
-                              dtype=torch.float32, device=spec.device)
+        cols, k_lo, k_hi = extent or (cm, 0, n)
+        if not (0 <= cols <= cm and 0 <= k_lo <= k_hi <= n
+                and k_lo % BK == 0):
+            raise ValueError(f"extract_shared: bad mask extent {extent}")
+        if cols:
+            m_splits, m_chunk = measure_plan(rows, cols, k_lo, k_hi)
+    # one allocation: powers [rows, cm], the extraction's split partial
+    # sums [splits, m, k2] (splits > 1), the measures' [m_splits, rows,
+    # cols], each from a 16-byte boundary
+    sizes = [-(-v // 4) * 4 for v in (
+        rows * cm, splits * m * k2 if splits > 1 else 0,
+        m_splits * rows * cols)]
+    scratch = (torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+               if any(sizes) else None)
+    base = scratch.data_ptr() if scratch is not None else 0
+    part = base + 4 * sizes[0] if sizes[1] else None
+    m_part = base + 4 * (sizes[0] + sizes[1]) if sizes[2] else None
+    powers = (scratch[:rows * cm].view(rows, cm) if masks is not None
+              else None)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
     rc = kernels.library().fdc_extract_shared(
-        spec.data_ptr(), rows, n, starts.data_ptr(), c,
-        mat.data_ptr(), l2, k2, out.data_ptr(),
-        masks.data_ptr() if masks is not None else None, cm,
-        partial.data_ptr() if partial is not None else None,
-        _POWER_SPLITS,
-        powers.data_ptr() if powers is not None else None,
-        fold_r, kernels.stream_ptr(spec.device),
+        spec.data_ptr(), rows, n, starts.data_ptr(), c, mat.data_ptr(), l2,
+        k2, out.data_ptr(), bm, bn, splits, k_chunk, part, fold_r,
+        ptr(masks), cm, cols, k_lo, k_hi, m_splits, m_chunk, m_part,
+        ptr(powers), kernels.stream_ptr(dev),
     )
     kernels.check(rc, "fdc_extract_shared")
     if masks is None:

@@ -5,9 +5,10 @@ Port of the parts of ``fdc_tpu.ops.fft`` on the port's paths:
 - :func:`forward_spectrum`: the batched forward FFT, fftshifted and scaled
   by 1/N (reference: python/FrequencyDomainChannelizer.py:206,214-216),
   routed as the JAX package routes it: ``use_mxu`` (the ``use_mxu_fft``
-  knob, on by default) and N >= 256 take the four-step DFT-as-product
-  form (:func:`forward_spectrum_four_step`, kernel F on the card,
-  ``csrc/forward_fft.cu``), anything else ``torch.fft``.
+  knob, on by default) and N >= 256 take :func:`forward_spectrum_four_step`
+  (the JAX package's four-step DFT-as-product form as its plain version;
+  kernel F on the card, a radix FFT, ``csrc/forward_fft.cu``), anything
+  else ``torch.fft``.
 - :func:`_rr_idft_matrix`: the numpy real-representation IDFT matrices
   (copied; the extraction kernels fold windows into them).
 - :func:`interp_subband_ifft_mxu`: the variable-width slot transform as
@@ -26,6 +27,7 @@ from fdc_tpu_torch import kernels
 
 __all__ = [
     "FOUR_STEP_MAX_N",
+    "RADIX_PLANS",
     "forward_spectrum",
     "forward_spectrum_four_step",
     "forward_spectrum_four_step_plain",
@@ -33,25 +35,45 @@ __all__ = [
     "interp_subband_ifft_mxu",
 ]
 
-# kernel F keeps a block's N values in shared memory: 128 x 128 at most
+# kernel F keeps a block's N values in shared memory: 16384 at most
 FOUR_STEP_MAX_N = 16384
 
+# kernel F's schedule (csrc/forward_fft.cu runs the same): N -> (values a
+# thread holds, the radices of its Stockham passes in order)
+RADIX_PLANS = {
+    256: (8, (8, 8, 4)),
+    512: (8, (8, 8, 8)),
+    1024: (16, (16, 16, 4)),
+    2048: (16, (16, 16, 8)),
+    4096: (16, (16, 16, 16)),
+    8192: (16, (16, 16, 16, 2)),
+    16384: (32, (16, 16, 16, 4)),
+}
 
-def forward_spectrum(blocks: torch.Tensor, use_mxu: bool = True
-                     ) -> torch.Tensor:
+
+def forward_spectrum(blocks: torch.Tensor, use_mxu: bool = True,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """[..., N] complex blocks -> [..., N] spectrum, DC at bin N/2, 1/N
     scaled (reference: python/FrequencyDomainChannelizer.py:206,214-216).
 
-    ``use_mxu`` with N >= 256 takes the four-step DFT-as-product route
-    (:func:`forward_spectrum_four_step`), as ``fdc_tpu.ops.fft.
-    forward_spectrum`` takes ``forward_spectrum_mxu``; otherwise
-    ``torch.fft``, shifted and scaled. The default is the config's
-    (``use_mxu_fft``), the only setting the channelizer accepts."""
+    ``use_mxu`` with N >= 256 takes :func:`forward_spectrum_four_step`,
+    as ``fdc_tpu.ops.fft.forward_spectrum`` takes
+    ``forward_spectrum_mxu``; otherwise ``torch.fft``, shifted and
+    scaled. The default is the config's (``use_mxu_fft``), the only
+    setting the channelizer accepts. With ``out`` (a contiguous tensor of
+    the result's shape) the spectrum is written there and ``out`` is
+    returned."""
     n = blocks.shape[-1]
     if use_mxu and n >= 256:
-        return forward_spectrum_four_step(blocks)
+        return forward_spectrum_four_step(blocks, out=out)
     spec = torch.fft.fftshift(torch.fft.fft(blocks, dim=-1), dim=-1)
-    return spec * (1.0 / n)
+    return _into(spec * (1.0 / n), out)
+
+
+def _into(spec: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
+    if out is None:
+        return spec
+    return out.copy_(spec)
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,12 +123,23 @@ def _four_step_tables(n: int, device: torch.device):
                       for m in mats))
 
 
-def forward_spectrum_four_step_plain(blocks: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _radix_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """Kernel F's twiddle table: complex64 [n], W_n^k = e^{-2 pi i k / n},
+    made in float64 and rounded once."""
+    k = np.arange(n, dtype=np.float64)
+    w = np.exp(-2j * np.pi * k / n).astype(np.complex64)
+    return torch.from_numpy(w).to(device)
+
+
+def forward_spectrum_four_step_plain(blocks: torch.Tensor,
+                                     out: torch.Tensor | None = None
+                                     ) -> torch.Tensor:
     """Plain PyTorch version of :func:`forward_spectrum_four_step`, a
     direct port of ``fdc_tpu.ops.fft.forward_spectrum_mxu`` in fp32: view
     each block as [m1, m2], DFT the columns (rr product with W1), twiddle,
     DFT the rows (rr product with E2, fftshift signs and 1/N folded in),
-    then spec[k] = X[k % m1, k // m1]."""
+    then spec[k] = X[k % m1, k // m1]. With ``out``, copied there."""
     n = blocks.shape[-1]
     m1, m2, w1, tr, ti, e2 = _four_step_tables(n, blocks.device)
     lead = blocks.shape[:-1]
@@ -117,16 +150,20 @@ def forward_spectrum_four_step_plain(blocks: torch.Tensor) -> torch.Tensor:
     zi = yr * ti + yi * tr
     o_ri = torch.matmul(torch.cat([zr, zi], dim=-1), e2)
     x_mat = torch.complex(o_ri[..., :m2], o_ri[..., m2:])  # [k1, k2]
-    return x_mat.transpose(-1, -2).reshape(lead + (n,))
+    return _into(x_mat.transpose(-1, -2).reshape(lead + (n,)), out)
 
 
-def forward_spectrum_four_step(blocks: torch.Tensor) -> torch.Tensor:
-    """The fftshifted, 1/N-scaled spectrum of [..., N] complex64 blocks by
-    the four-step DFT-as-product form, N a power of two in [256, 16384].
-    CPU tensors take the plain version; CUDA tensors launch kernel F
-    (``csrc/forward_fft.cu``) into a new tensor."""
+def forward_spectrum_four_step(blocks: torch.Tensor,
+                               out: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """The fftshifted, 1/N-scaled spectrum of [..., N] complex64 blocks,
+    N a power of two in [256, 16384]. CPU tensors take the plain version
+    (the four-step DFT-as-product form); CUDA tensors launch kernel F
+    (``csrc/forward_fft.cu``, a radix FFT). ``out``: a contiguous
+    complex64 tensor of the blocks' shape to write into (e.g. rows 1..B
+    of the step's extended spectrum), else a new tensor."""
     if blocks.device.type == "cpu":
-        return forward_spectrum_four_step_plain(blocks)
+        return forward_spectrum_four_step_plain(blocks, out)
     n = blocks.shape[-1]
     if blocks.dtype != torch.complex64:
         raise TypeError("forward_spectrum_four_step: complex64 blocks "
@@ -137,13 +174,18 @@ def forward_spectrum_four_step(blocks: torch.Tensor) -> torch.Tensor:
     if not blocks.is_contiguous():
         raise ValueError("forward_spectrum_four_step: contiguous blocks "
                          "expected")
-    _, _, w1, tr, ti, e2 = _four_step_tables(n, blocks.device)
-    out = torch.empty_like(blocks)
+    if out is None:
+        out = torch.empty_like(blocks)
+    elif (out.shape != blocks.shape or out.dtype != blocks.dtype
+          or out.device != blocks.device or not out.is_contiguous()):
+        raise ValueError("forward_spectrum_four_step: out must be a "
+                         "contiguous complex64 tensor of the blocks' shape "
+                         "on their device")
+    tw = _radix_twiddles(n, blocks.device)
     rows = blocks.numel() // n
     if rows:
         rc = kernels.library().fdc_forward_fft(
-            blocks.data_ptr(), rows, n, w1.data_ptr(), tr.data_ptr(),
-            ti.data_ptr(), e2.data_ptr(), out.data_ptr(),
+            blocks.data_ptr(), rows, n, tw.data_ptr(), out.data_ptr(),
             kernels.stream_ptr(blocks.device),
         )
         kernels.check(rc, "fdc_forward_fft")

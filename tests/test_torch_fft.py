@@ -209,6 +209,35 @@ def test_forward_fft_kernel_matches_plain(n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 7, 512])
+@pytest.mark.parametrize("n", NS)
+def test_forward_fft_kernel_batches(n, b):
+    """Kernel F (a radix FFT) against its plain version (the four-step
+    product form) and float64 numpy, one to 512 blocks."""
+    dev = cuda_device()
+    x = blocks(n, b, salt=3)
+    got = fft.forward_spectrum_four_step(torch.from_numpy(x).to(dev))
+    ref = fft.forward_spectrum_four_step_plain(torch.from_numpy(x).to(dev))
+    assert_close_to_max(got.cpu().numpy(), ref.cpu().numpy(), 1e-5, f"N={n}")
+    want = np.fft.fftshift(np.fft.fft(x.astype(np.complex128), axis=-1),
+                           axes=-1) / n
+    assert rel_rms(got.cpu().numpy(), want) <= REL_RMS
+
+
+@pytest.mark.cuda
+def test_forward_fft_kernel_writes_into_spec_ext():
+    """Kernel F writes rows 1..B of a [B + 1, N] extended spectrum and
+    leaves row 0 alone."""
+    dev = cuda_device()
+    x = torch.from_numpy(blocks(4096, 512, salt=4)).to(dev)
+    ext = torch.full((513, 4096), 3 + 4j, dtype=torch.complex64, device=dev)
+    got = fft.forward_spectrum_four_step(x, out=ext[1:])
+    assert got.data_ptr() == ext[1:].data_ptr()
+    assert bool((ext[0] == 3 + 4j).all())
+    assert torch.equal(ext[1:], fft.forward_spectrum_four_step(x))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", probes.PROBES)
 def test_probe_kernel_matches_plain(name):
     dev = cuda_device()

@@ -290,17 +290,105 @@ def test_extract_shared_fold_kernel_matches_plain(r, shape):
                                                              args[1], r))
 
 
+def band_masks(n, used, cols=128, seed=0):
+    """[n, cols] 0/1 measure masks as the channelizer builds them: ``used``
+    leading columns, each a contiguous band of bins, then zero padding."""
+    rng = np.random.default_rng(seed)
+    m = np.zeros((n, cols), np.float32)
+    for c in range(used):
+        lo = int(rng.integers(n // 8, n - n // 8))
+        m[lo:lo + int(rng.integers(4, 40)), c] = 1.0
+    return torch.from_numpy(m)
+
+
+# (rows, N, l, C, odd starts, mask columns in use of 128, the masks'
+# extent passed): 2k = 1.5 l
+EDGE_CASES = {
+    "odd-starts": (37, 1024, 64, 6, True, 0, False),
+    "rows513-nout96": (513, 4096, 64, 3, True, 0, False),
+    "rows513-nout192": (513, 4096, 128, 5, False, 0, False),
+    "example-C1-K2048": (512, 4096, 1024, 1, False, 54, True),
+    "masks-34-of-128": (512, 4096, 64, 64, True, 34, True),
+    "masks-34-of-128-whole": (512, 4096, 64, 64, True, 34, False),
+}
+
+
+def edge_bucket(rows, n, l, c, odd, seed):
+    rng = np.random.default_rng(seed)
+    spec, _, mat = bucket(rng, rows, n, l, c)
+    starts = np.sort(rng.choice((n - l) // 2, c, replace=False)) * 2
+    starts = starts + 1 if odd else starts
+    return spec, torch.from_numpy(starts.astype(np.int32)), mat
+
+
 @pytest.mark.cuda
-def test_extract_static_kernel_unchanged_by_the_fold():
-    """Kernel E (tile_gemm MODE 2, no fold) on per-channel copies of one
-    matrix equals kernel A unfolded (MODE 0) bit for bit: same tiles,
-    same accumulation order."""
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_extract_shared_kernel_edge_cases(case):
+    """Kernel A on odd starts (8-byte copies), rows and nout that are no
+    multiple of its tiles, the example's C = 1, K = 2048 bucket (a k
+    split), and masks with only some columns in use, with their extent
+    (the channelizer's route) and without it (the whole masks): the
+    padding columns come back exactly 0."""
+    dev = cuda_device()
+    rows, n, l, c, odd, used, ext = EDGE_CASES[case]
+    args = to(edge_bucket(rows, n, l, c, odd, 21), dev)
+    kw = {}
+    if used:
+        masks = band_masks(n, used)
+        args += (masks.to(dev),)
+        if ext:
+            kw["extent"] = extract_fused.mask_extent(masks)
+    before = extract_fused.extract_shared.launches
+    got = extract_fused.extract_shared(*args, **kw)
+    ref = extract_fused.extract_shared_plain(*args)
+    assert extract_fused.extract_shared.launches == before + 1
+    if used:
+        assert_close_to_max(got[0].cpu(), ref[0].cpu())
+        np.testing.assert_allclose(got[1].cpu(), ref[1].cpu(), rtol=PRTOL)
+        assert not got[1][:, used:].any()
+    else:
+        assert_close_to_max(got.cpu(), ref.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [2, 4])
+@pytest.mark.parametrize("case", ["odd-starts", "rows513-nout96",
+                                  "rows513-nout192", "example-C1-K2048"])
+def test_extract_shared_fold_kernel_edge_cases(case, r):
+    """The fold's epilogue on the same edge cases, against its plain
+    version and exactly against the unfolded kernel A rotated."""
+    dev = cuda_device()
+    rows, n, l, c, odd, _, _ = EDGE_CASES[case]
+    args = to(edge_bucket(rows, n, l, c, odd, 22), dev)
+    got = extract_fused.extract_shared_fold(*args, r)
+    assert_close_to_max(got.cpu(),
+                        extract_fused.extract_shared_fold_plain(*args,
+                                                                r).cpu())
+    unfolded = extract_fused.extract_shared(*args)
+    assert torch.equal(got, extract_fused.fold_quarter_turns(unfolded,
+                                                             args[1], r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c, splits", [(16, 1), (5, 3)])
+def test_extract_static_kernel_unchanged_by_the_fold(c, splits):
+    """Kernel E (tile_gemm.cuh, no fold) on per-channel copies of one
+    matrix against kernel A unfolded. Where gemm_plan takes no k split
+    (16 channels) the two agree bit for bit: both sum each output's k
+    terms in order, one fmaf each. Where it splits k (the 5-channel
+    bucket, 84 tiles: three ranges) only the order of the sum differs,
+    so they agree at the plain version's tolerance."""
     dev = cuda_device()
     rng = np.random.default_rng(14)
-    spec, starts, mat = to(bucket(rng, 513, 4096, 256, 5), dev)
-    mats = mat[None].repeat(5, 1, 1).contiguous()
-    assert torch.equal(extract_fused.extract_static(spec, starts, mats),
-                       extract_fused.extract_shared(spec, starts, mat))
+    assert extract_fused.gemm_plan(c * 513, 384, 512)[2] == splits
+    spec, starts, mat = to(bucket(rng, 513, 4096, 256, c), dev)
+    mats = mat[None].repeat(c, 1, 1).contiguous()
+    e = extract_fused.extract_static(spec, starts, mats)
+    a = extract_fused.extract_shared(spec, starts, mat)
+    if splits == 1:
+        assert torch.equal(e, a)
+    else:
+        assert_close_to_max(a.cpu(), e.cpu())
 
 
 @pytest.mark.cuda
