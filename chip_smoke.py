@@ -46,12 +46,18 @@ with its wall seconds:
    on the plain path,
    and each phase-2 case's kernel against its plain version and, where
    one PyTorch call computes the same function, that call (by CUDA
-   events over back-to-back calls, wrappers included; for kernels A, E
-   and F also the device time alone, by CUDA graph replay);
-6. kernel A's tile and k split rule (``extract_fused.gemm_plan``): on
-   its buckets of the paths, every tile width and 1-8 k splits, each
-   held against the plain version and timed by CUDA graph replay, with
-   the rule's choice ranked among them (``plan_sweep``).
+   events over back-to-back calls, wrappers included; for kernels A-F
+   also the device time alone, by CUDA graph replay); kernel C's cases
+   name their blocks with candidates and the mean valid candidates of
+   such a block, and A's and E's their extraction error relative to the
+   output's max;
+6. kernel A's and kernel E's tile and k split rules
+   (``extract_fused.gemm_plan``, ``static_plan``): on their buckets of
+   the paths, every tile width and 1-8 k splits (E: also with and
+   without its tail rows folded into the last tile), each held against
+   the plain version and timed by CUDA graph replay, with the rule's
+   choice ranked among them and each k split's error relative to the
+   output's max (``plan_sweep``).
 
 In the kernel summary JSON, ``ms``, ``plain_ms``, ``bound_ms`` and
 ``library_ms`` are sums over the kernel's phase-2 cases.
@@ -147,7 +153,7 @@ def compare_outputs(a, b, what):
     everything else within the stream tolerance."""
     fa, fb = flatten(a), flatten(b)
     assert fa.keys() == fb.keys(), f"{what}: keys differ {set(fa) ^ set(fb)}"
-    worst = 0.0
+    worst = worst_rel = 0.0
     for k in fa:
         x, y = fa[k], fb[k]
         assert x.shape == y.shape and x.dtype == y.dtype, (what, k)
@@ -158,7 +164,9 @@ def compare_outputs(a, b, what):
             ok, err = close(x, y, rtol, atol)
             assert ok, f"{what}: {k} max abs err {err}"
             worst = max(worst, err)
-    return worst
+            if not k.endswith("/power") and y.size and np.abs(y).max() > 0:
+                worst_rel = max(worst_rel, err / float(np.abs(y).max()))
+    return worst, worst_rel
 
 
 def event_meta(ev):
@@ -476,7 +484,7 @@ def fmt_ms(ms):
 
 # kernels whose phase-5 cases also get their device time by graph_time
 GRAPHED = ("forward_fft", "extract_shared", "extract_shared_fold",
-           "extract_static")
+           "extract_static", "slot_lifecycle", "greedy_accept", "powact")
 
 
 def held_time(fn, hold_ms):
@@ -802,6 +810,34 @@ PLAN_BUCKETS = {
 }
 
 
+# kernel E's buckets: the example's fused w256 and w512 and the function
+# of tools/pallas_extract_proto.py (the flagship's bucket 0 with a matrix
+# per channel): (rows, l, C); the output is 1.5 l pairs wide
+STATIC_BUCKETS = {
+    "example w256": (513, 256, 2),
+    "example w512": (513, 512, 5),
+    "prototype": (512, 64, 64),
+}
+
+
+def kernel_e_inputs(rng, rows, n, l, c):
+    """Seeded inputs of kernel E on the card: [rows, n] spectra, C sorted
+    even starts and a folded [2l, 1.5 l * 2] matrix a channel, each of its
+    own window."""
+    import torch
+
+    from fdc_tpu_torch.ops import extract
+
+    spec = (rng.standard_normal((rows, n))
+            + 1j * rng.standard_normal((rows, n))).astype(np.complex64)
+    starts = (np.sort(rng.choice((n - l) // 2, c, replace=False)) * 2
+              ).astype(np.int32)
+    wins = rng.random((c, l)).astype(np.float32) + 0.1
+    mats = extract.static_folded_matrices(n, starts, wins, l // 4, float(l))
+    return [torch.from_numpy(np.ascontiguousarray(v)).to("cuda")
+            for v in (spec, starts, mats)]
+
+
 def kernel_a_inputs(rng, rows, n, l, c, odd, used):
     """Seeded inputs of kernel A on the card: [rows, n] spectra, C sorted
     starts (all odd or all even), a folded [2l, 1.5 l * 2] matrix, and
@@ -862,14 +898,52 @@ def extract_edge_cases():
     return out
 
 
+def sweep(name, what, plan_fn, plans, chosen, run, ref, cmp, library,
+          card):
+    """Time ``run`` under each plan in place of ``extract_fused.<plan_fn>``
+    (graph_time, device time), each held against the plain result ``ref``
+    (its extraction's max error relative to the output's max printed
+    beside it: the k split's summation order), and rank the rule's choice
+    ``chosen`` among them."""
+    from unittest import mock
+
+    from fdc_tpu_torch.ops import extract_fused as ef
+
+    r0 = ref[0] if isinstance(ref, tuple) else ref
+    scale = float(r0.abs().max())
+    times = []
+    for plan in sorted(plans):
+        with mock.patch.object(ef, plan_fn, lambda *_, p=plan: p):
+            got = run()
+            cmp(got, ref)
+            g0 = got[0] if isinstance(got, tuple) else got
+            rel = float((g0 - r0).abs().max()) / scale
+            ms = graph_time(run)
+        times.append((math.inf if ms is None else ms, plan, rel))
+    times.sort()
+    rank = [p for _, p, _ in times].index(chosen) + 1
+    t_chosen, _, rel_chosen = next(t for t in times if t[1] == chosen)
+    log(f"phase 6: {name} {what}: {plan_fn} {chosen} {t_chosen:.4f} ms "
+        f"(err {rel_chosen:.3g} of max), rank {rank} of {len(times)}; "
+        f"library {fmt_ms(graph_time(library))}; fastest: "
+        + ", ".join(f"{'x'.join(map(str, p[:2]))}/{p[2]}"
+                    f"{'' if len(p) < 5 else f' tail {p[4]}'} {t:.4f} ms "
+                    f"({e:.2g})" for t, p, e in times[:5])
+        + f"; by splits: " + ", ".join(
+            f"{p[2]} splits {e:.3g}" for t, p, e in
+            sorted(times, key=lambda t: t[1][2]) if p[1] == chosen[1]
+            and p[4:] == chosen[4:]) + f" {card}")
+
+
 def plan_sweep(card):
     """Kernel A on PLAN_BUCKETS (seeded inputs at the paths' shapes) under
     every tile width of TILE_N and 1, 2, 4 or 8 k splits, in place of
-    ``extract_fused.gemm_plan``'s choice: each plan held against the plain
-    version and timed by graph_time (device time), beside the choice and
-    the library call. The check of gemm_plan's rule on this card."""
-    from unittest import mock
-
+    ``extract_fused.gemm_plan``'s choice, and kernel E on STATIC_BUCKETS
+    under every width, 1, 2, 3, 4, 6 or 8 k splits and the tail folded
+    into the last tile or not, in place of ``static_plan``'s: each plan
+    held against the plain version and timed by graph_time (device time),
+    beside the choice and the library call. The check of both rules on
+    this card."""
     from fdc_tpu_torch.ops import extract_fused as ef
 
     rng = np.random.default_rng(6)
@@ -900,21 +974,28 @@ def plan_sweep(card):
                     chunk = -(-stages // want)
                     plans.add((ef.TILE_M, bn, -(-stages // chunk),
                                chunk * ef.BK))
-        times = []
-        for plan in sorted(plans):
-            with mock.patch.object(ef, "gemm_plan", lambda *_, p=plan: p):
-                cmp(run(), ref)
-                ms = graph_time(run)
-            times.append((math.inf if ms is None else ms, plan))
-        times.sort()
-        rank = [p for _, p in times].index(chosen) + 1
-        log(f"phase 6: {name} [{m}, {k}] x [{k}, {nout}]"
-            f"{f' + {used} measure columns' if used else ''}"
-            f"{f', fold R={r}' if r else ''}: gemm_plan {chosen[:3]} "
-            f"{dict((p, t) for t, p in times)[chosen]:.4f} ms, rank {rank} "
-            f"of {len(times)}; library {fmt_ms(graph_time(library))}; "
-            f"fastest: " + ", ".join(f"{p[0]}x{p[1]}/{p[2]} {t:.4f} ms"
-                                     for t, p in times[:4]) + f" {card}")
+        sweep(name, f"[{m}, {k}] x [{k}, {nout}]"
+              f"{f' + {used} measure columns' if used else ''}"
+              f"{f', fold R={r}' if r else ''}", "gemm_plan", plans, chosen,
+              run, ref, cmp, library, card)
+    for name, (rows, l, c) in STATIC_BUCKETS.items():
+        spec, starts, mats = kernel_e_inputs(rng, rows, 4096, l, c)
+        k, nout = mats.shape[1:]
+        chosen = ef.static_plan(c, rows, k, nout)
+        stages = k // ef.BK
+        plans = {chosen}
+        for bn in ef.TILE_N:
+            for want in (1, 2, 3, 4, 6, 8):
+                if want <= max(1, stages // ef.MIN_SPLIT_STAGES):
+                    chunk = -(-stages // want)
+                    for tail in {chosen[4], 0}:
+                        plans.add((ef.TILE_M, bn, -(-stages // chunk),
+                                   chunk * ef.BK, tail))
+        _, _, _, library, cmp = extract_work(spec, starts, mats)
+        sweep(name, f"{c} x [{rows}, {k}] x [{k}, {nout}]", "static_plan",
+              plans, chosen, lambda: ef.extract_static(spec, starts, mats),
+              ef.extract_static_plain(spec, starts, mats), cmp, library,
+              card)
 
 
 def extract_proto_case(fdc, x):
@@ -975,13 +1056,30 @@ def call_case(path, name, fn, plain, a, kw):
         pa = kw.get("powact")
         what = (f"packs {[list(p.shape) for p in a[0]]}, S="
                 f"{[int(st['active'].numel()) for st in a[1]]}, burst C="
-                f"{pa['powers'].shape[1] if pa else 0}")
+                f"{pa['powers'].shape[1] if pa else 0}, "
+                f"{candidate_stats(a[0], kw['n_cands'])}")
     else:
         what = f"powers {list(a[0].shape)}"
     flops = 2.0 * a[0].numel() if name == "powact" else 0.0  # two divisions
     return case(name, lambda: fn(*a, **kw), lambda: plain(*a, **kw),
                 cmp_exact, f"{path} {what}", nbytes((a, kw)) + nbytes(out),
                 flops)
+
+
+def candidate_stats(packs, n_cands):
+    """Per segment of kernel C's call: the blocks with a valid candidate,
+    the mean and the most valid candidates such a block holds (the list
+    the chain walks), and whether they sit at the front of the pack."""
+    out = []
+    for p, k in zip(packs, n_cands):
+        cv = (p[:, 2 * k:3 * k] != 0).cpu().numpy()
+        nv = cv.sum(1)
+        busy = nv > 0
+        front = bool((cv == (np.arange(k)[None, :] < nv[:, None])).all())
+        out.append(f"{int(busy.sum())} of {len(nv)} blocks busy, nv mean "
+                   f"{nv[busy].mean() if busy.any() else 0.0:.2f} max "
+                   f"{int(nv.max())}{'' if front else ' (not compacted)'}")
+    return "; ".join(out)
 
 
 def powact_edge_case(fdc_pa):
@@ -1149,18 +1247,20 @@ def compare_cpu(name, make, x):
     cfg, dev = gpu.config, gpu.device
     cc, gc = cpu._device_init(), gpu._device_init()
     bs = gpu.batch_samples
-    worst = 0.0
+    worst = worst_rel = 0.0
     for step in range(2):
         chunk = torch.from_numpy(x[step * bs:(step + 1) * bs])
         cc, co = cpu._device_step(cc, chunk, step * cfg.batch_blocks)
         gc, go = gpu._device_step(gc, chunk.to(dev), step * cfg.batch_blocks)
-        worst = max(worst, compare_outputs(go, co, f"{name} step {step}"))
+        err, rel = compare_outputs(go, co, f"{name} step {step}")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
         compare_outputs(gc, cc, f"{name} carry after step {step}")
     ev_c, ev_g = ([e for r in drive(f, x[:2 * bs]) for e in r.events]
                   for f in (cpu, gpu))
     compare_events(ev_g, ev_c, f"{name} events")
     log(f"phase 4: {name}: 2 steps card == cpu plain (max abs err "
-        f"{worst:.3g}), {len(ev_g)} events identical")
+        f"{worst:.3g}; streams and extractions within {worst_rel:.3g} of "
+        f"their max), {len(ev_g)} events identical")
 
 
 def time_step(name, fdc, x, card, top=8):
@@ -1397,7 +1497,8 @@ def main() -> int:
     for cs in cases:
         got = cs["kern"]()
         torch.cuda.synchronize()
-        err = cs["cmp"](got, cs["plain"]())
+        ref = cs["plain"]()
+        err = cs["cmp"](got, ref)
         ent = summary[cs["name"]]
         ent["max_abs_err"] = max(ent["max_abs_err"], err)
         t_bytes = cs["bytes"] / PEAK_BYTES * 1e3
@@ -1407,8 +1508,16 @@ def main() -> int:
         if cs["bound_ms"] > ent["bound_max"]:
             ent["bound_max"] = cs["bound_ms"]
             ent["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        rel = ""
+        if cs["name"].startswith("extract"):
+            # the extraction's error relative to its output's max
+            g0, r0 = ((got[0], ref[0]) if isinstance(ref, tuple)
+                      else (got, ref))
+            rel = (f" (extraction {float((g0 - r0).abs().max()):.3g}, "
+                   f"{float((g0 - r0).abs().max() / r0.abs().max()):.3g} "
+                   f"of its max)")
         log(f"phase 2: {cs['name']} {cs['shape']}: matches plain, max abs "
-            f"err {err:.3g}; bound {cs['bound_ms'] * 1e3:.2f} us "
+            f"err {err:.3g}{rel}; bound {cs['bound_ms'] * 1e3:.2f} us "
             f"({cs['bytes'] / 1e6:.3f} MB, {cs['flops'] / 1e9:.4f} GFLOP)")
     phase_done(2)
 
@@ -1451,8 +1560,9 @@ def main() -> int:
                     f"{cuda_time(cs['unfolded'], 50):.4f} ms")
         if cs["name"] in GRAPHED:
             lib += (f"; device (graph): kernel "
-                    f"{fmt_ms(graph_time(cs['kern']))}, library "
-                    f"{fmt_ms(graph_time(cs['library']))}")
+                    f"{fmt_ms(graph_time(cs['kern']))}")
+            if cs["library"] is not None:
+                lib += f", library {fmt_ms(graph_time(cs['library']))}"
         log(f"phase 5: {cs['name']} {cs['shape']}: kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms{lib}, bound {cs['bound_ms']:.5f} ms "
             f"{card}")

@@ -47,60 +47,20 @@
 #include <cuda_runtime.h>
 
 #include "gather_gemm.cuh"
-#include "smem_optin.cuh"
 
 namespace {
 
 using fdc_gather::Args;
-using fdc_gather::gather_gemm;
-using fdc_gather::Tile;
-
-template <int BM, int BN, bool POWER, int FOLD_R>
-int run(const Args& a, int splits, cudaStream_t st) {
-  constexpr int bytes = Tile<BM, BN, POWER>::SMEM;
-  auto* kern = gather_gemm<BM, BN, POWER, FOLD_R>;
-  static bool done[64] = {};
-  const cudaError_t err = allow_smem(kern, bytes, done);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((a.m + BM - 1) / BM, (a.nout + BN - 1) / BN, splits);
-  kern<<<grid, Tile<BM, BN, POWER>::NT, bytes, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
+using fdc_gather::launch;
+using fdc_gather::sum_splits;
 
 template <int FOLD_R>
-int run_tile(const Args& a, int bm, int bn, int splits, cudaStream_t st) {
+int run_tile(const Args& a, int bm, int bn, cudaStream_t st) {
   if (bm != 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (bn == 96) return run<128, 96, false, FOLD_R>(a, splits, st);
-  if (bn == 128) return run<128, 128, false, FOLD_R>(a, splits, st);
-  if (bn == 64) return run<128, 64, false, FOLD_R>(a, splits, st);
+  if (bn == 96) return launch<128, 96, false, FOLD_R>(a, 1, st);
+  if (bn == 128) return launch<128, 128, false, FOLD_R>(a, 1, st);
+  if (bn == 64) return launch<128, 64, false, FOLD_R>(a, 1, st);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// the split sums, in split order: blockIdx.y = 0 the extraction's
-// (ext_splits > 1), 1 the measures' (into [rows, cm], columns from cu on
-// zero)
-__global__ void sum_splits(const float* __restrict__ ext_part, int ext_splits,
-                           int ext_len, float* __restrict__ ext_out,
-                           const float* __restrict__ m_part, int m_splits,
-                           int rows, int cu, int cm,
-                           float* __restrict__ powers) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (blockIdx.y == 0) {
-    if (ext_splits < 2 || i >= ext_len) return;
-    float s = 0.0f;
-    for (int z = 0; z < ext_splits; ++z)
-      s += ext_part[static_cast<size_t>(z) * ext_len + i];
-    ext_out[i] = s;
-    return;
-  }
-  if (powers == nullptr || i >= rows * cm) return;
-  const int r = i / cm;
-  const int c = i - r * cm;
-  float s = 0.0f;
-  if (c < cu)
-    for (int z = 0; z < m_splits; ++z)
-      s += m_part[(static_cast<size_t>(z) * rows + r) * cu + c];
-  powers[i] = s;
 }
 
 }  // namespace
@@ -124,28 +84,30 @@ extern "C" int fdc_extract_shared(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sp = static_cast<const float*>(spec);
   Args a{sp, rows, n, static_cast<const int*>(starts),
-         static_cast<const float*>(mat), nout, c * rows, nout, 0, k2,
-         k_chunk, static_cast<float*>(splits > 1 ? part : out)};
+         static_cast<const float*>(mat), nout, 0, c * rows, nout, c * rows,
+         0, 0, k2, k_chunk, splits,
+         static_cast<float*>(splits > 1 ? part : out)};
   int rc;
   switch (fold_r) {
     case 0:
     case 1:
-      rc = run_tile<0>(a, bm, bn, splits, st);
+      rc = run_tile<0>(a, bm, bn, st);
       break;
     case 2:
-      rc = run_tile<2>(a, bm, bn, splits, st);
+      rc = run_tile<2>(a, bm, bn, st);
       break;
     case 4:
-      rc = run_tile<4>(a, bm, bn, splits, st);
+      rc = run_tile<4>(a, bm, bn, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rc != 0) return rc;
   if (masks != nullptr && cu > 0) {
-    Args mp{sp, rows, n, nullptr, static_cast<const float*>(masks), cm,
-            rows, cu, k_lo, k_hi, m_chunk, static_cast<float*>(m_part)};
-    rc = run<64, 64, true, 0>(mp, m_splits, st);
+    Args mp{sp, rows, n, nullptr, static_cast<const float*>(masks), cm, 0,
+            rows, cu, rows, 0, k_lo, k_hi, m_chunk, m_splits,
+            static_cast<float*>(m_part)};
+    rc = launch<64, 64, true, 0>(mp, 1, st);
     if (rc != 0) return rc;
   }
   const int ext_len = splits > 1 ? c * rows * nout : 0;

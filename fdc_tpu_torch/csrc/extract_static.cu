@@ -22,28 +22,63 @@
 // kernel's VMEM gate (fits_vmem) and its XLA fallback do not apply: the
 // matrices stream through shared memory tile by tile.
 //
-// What the design does about it: the register-tiled GEMM of
-// tile_gemm.cuh — grid z walks the channels,
-// each channel's A-tile loader gathers rows at its static start straight
-// from the spectrum and its B tiles come from its own matrix, so the
-// gathered [C, R, 2l] operand never exists in device memory. The ragged
-// last row tile (513 = 8 * 64 + 1) is masked. wgmma/TMA pipelines are
-// later work.
+// What the design does about it: kernel A's pipelined GEMM
+// (gather_gemm.cuh: an 8 x 8 micro-tile a thread, a 3-stage cp.async
+// ring gathering the slices straight from the spectrum) with one group a
+// channel: grid z walks channel x k split, a row tile never straddles
+// two channels (their matrices differ), and the B loader reads channel
+// c's matrix. The trap is the channels' last rows: R = 513 = 4 * 128 + 1,
+// so a fifth 128-row tile a channel would cost a whole tile's FFMAs for
+// one row (40 of w512's 200 CTAs). Instead the fourth tile also computes
+// the one or two rows past it (gather_gemm's XR tail: a thread each, 16
+// products a stage). The tile width and the k splits come from the
+// wrapper (ops/extract_fused.py static_plan); split partial sums are
+// added in split order by gather_gemm.cuh's sum_splits, as kernel A's.
 
 #include <cuda_runtime.h>
 
-#include "tile_gemm.cuh"
+#include "gather_gemm.cuh"
+
+namespace {
+
+using fdc_gather::Args;
+using fdc_gather::launch;
+
+constexpr int TAIL = 2;  // rows a channel's last tile may add
+
+int run_tile(const Args& a, int bm, int bn, int groups, cudaStream_t st) {
+  if (bm != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (bn == 96) return launch<128, 96, false, 0, TAIL>(a, groups, st);
+  if (bn == 128) return launch<128, 128, false, 0, TAIL>(a, groups, st);
+  if (bn == 64) return launch<128, 64, false, 0, TAIL>(a, groups, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
 
 // spec: complex64 [rows, n]; starts: int32 [c] (device); mats: float32
 // [c, k2, nout] (rows interleaved re/im); out: float32 [c, rows, nout].
+// Each channel's rows run on (bm, bn) tiles, the last taking the `tail`
+// rows (0 ... 2, rows % bm) past the whole tiles, in `splits` k ranges of
+// k_chunk floats; with splits > 1 the partial sums go to part [splits, c
+// * rows, nout].
 extern "C" int fdc_extract_static(
     const void* spec, int rows, int n, const void* starts, int c,
-    const void* mats, int k2, int nout, void* out, void* stream) {
-  using namespace fdc_gemm;
-  dim3 grid((rows + BM - 1) / BM, (nout + BN - 1) / BN, c);
-  tile_gemm<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(spec), rows, n,
-      static_cast<const int*>(starts), static_cast<const float*>(mats), k2,
-      nout, rows, static_cast<float*>(out));
+    const void* mats, int k2, int nout, void* out, int bm, int bn,
+    int splits, int k_chunk, int tail, void* part, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (splits < 1 || (splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{static_cast<const float*>(spec), rows, n,
+         static_cast<const int*>(starts), static_cast<const float*>(mats),
+         nout, static_cast<size_t>(k2) * nout, c * rows, nout, rows, tail,
+         0, k2, k_chunk, splits,
+         static_cast<float*>(splits > 1 ? part : out)};
+  int rc = run_tile(a, bm, bn, c, st);
+  if (rc != 0 || splits < 2) return rc;
+  const int len = c * rows * nout;
+  fdc_gather::sum_splits<<<(len + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(part), splits, len, static_cast<float*>(out),
+      nullptr, 0, 0, 0, 0, nullptr);
   return static_cast<int>(cudaGetLastError());
 }

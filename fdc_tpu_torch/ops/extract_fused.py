@@ -24,7 +24,8 @@ tables, R = 8) it stays outside (``extract.apply_phase_pairs``). The CUDA
 sources are ``csrc/extract_shared.cu`` (on the pipelined GEMM of
 ``csrc/gather_gemm.cuh``, its tiles and k splits chosen per call by
 :func:`gemm_plan` and :func:`measure_plan`) and ``csrc/extract_static.cu``
-(on ``csrc/tile_gemm.cuh``).
+(on the same GEMM body with a matrix per channel, its plan from
+:func:`static_plan`).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ __all__ = [
     "gemm_plan",
     "mask_extent",
     "measure_plan",
+    "static_plan",
     "extract_static",
     "extract_static_plain",
 ]
@@ -67,6 +69,9 @@ MIN_SPLIT_STAGES = 2
 MEASURE_TILE = (64, 64)
 MEASURE_CTAS = 4 * SMS
 MEASURE_MIN_STAGES = 4
+# kernel E: rows past a channel's whole tiles that its last tile computes
+# (csrc/extract_static.cu TAIL)
+STATIC_TAIL = 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,16 +84,61 @@ def gemm_plan(m: int, nout: int, k: int):
     splits, each of at least MIN_SPLIT_STAGES stages, whose grid still
     runs in one wave of WAVE CTAs. A grid of a wave or more is not split.
     The splits' partial sums are added in split order (no atomics)."""
+    bn = _tile_width(nout)
+    tiles = -(-m // TILE_M) * -(-nout // bn)
+    splits, chunk = _wave_splits(tiles, k)
+    return TILE_M, bn, splits, chunk
+
+
+def _tile_width(nout: int) -> int:
+    """The first width of TILE_N that pads nout by at most an eighth, else
+    the one that pads least."""
     def pad(bn):
         return -(-nout // bn) * bn - nout
 
-    bn = next((w for w in TILE_N if 8 * pad(w) <= nout),
-              min(TILE_N, key=pad))
-    tiles = -(-m // TILE_M) * -(-nout // bn)
+    return next((w for w in TILE_N if 8 * pad(w) <= nout),
+                min(TILE_N, key=pad))
+
+
+def _wave_splits(tiles: int, k: int):
+    """(splits, k_chunk): the most k splits, each of at least
+    MIN_SPLIT_STAGES stages, whose grid of ``tiles`` tiles a split still
+    runs in one wave of WAVE CTAs; none for a grid of a wave or more."""
     stages = -(-k // BK)
     want = max(1, min(WAVE // tiles, stages // MIN_SPLIT_STAGES))
     chunk = -(-stages // want)
-    return TILE_M, bn, -(-stages // chunk), chunk * BK
+    return -(-stages // chunk), chunk * BK
+
+
+@functools.lru_cache(maxsize=None)
+def static_plan(c: int, rows: int, k: int, nout: int):
+    """Kernel E's plan for C channels of [rows, k] x [k, nout]: (bm, bn,
+    splits, k_chunk, tail).
+
+    A row tile never straddles two channels (their matrices differ), so
+    each channel's rows are tiled alone: TILE_M rows a tile, and where a
+    channel ends at most STATIC_TAIL rows past its last whole tile (R =
+    513 = 4 * 128 + 1 on every path), that tile also computes them
+    (``tail``) instead of a whole tile's FFMAs for a row or two. Where
+    the grid of the widest tile, whose CTA takes an SM alone, fills 3/4
+    to all of the SMs, that tile unsplit (w512: 120 CTAs); else width and
+    k splits by kernel A's rule over the C * row tiles * column tiles of
+    the grid."""
+    tail = rows % TILE_M
+    if rows < TILE_M or tail > STATIC_TAIL:
+        tail = 0
+    row_tiles = rows // TILE_M if tail else -(-rows // TILE_M)
+    # one CTA of the widest tile takes an SM alone (256 threads at ~170
+    # registers): where its grid fills 3/4 to all of the SMs, it is one
+    # even wave without partial sums
+    wide = max(TILE_N)
+    tiles = c * row_tiles * -(-nout // wide)
+    if 8 * (-(-nout // wide) * wide - nout) <= nout and (
+            4 * tiles >= 3 * SMS and tiles <= SMS):
+        return TILE_M, wide, 1, -(-k // BK) * BK, tail
+    bn = _tile_width(nout)
+    splits, chunk = _wave_splits(c * row_tiles * -(-nout // bn), k)
+    return TILE_M, bn, splits, chunk, tail
 
 
 @functools.lru_cache(maxsize=None)
@@ -306,11 +356,18 @@ def extract_static(spec, starts, mats):
         if t.device != spec.device or not t.is_contiguous():
             raise ValueError("extract_static: contiguous tensors on one "
                              "device expected")
+    if spec.data_ptr() % 8 or mats.data_ptr() % 8:
+        raise ValueError("extract_static: 8-byte aligned tensors expected")
     out = torch.empty((c, rows, k2 // 2, 2), dtype=torch.float32,
                       device=spec.device)
+    bm, bn, splits, k_chunk, tail = static_plan(c, rows, l2, k2)
+    part = (torch.empty(splits * c * rows * k2, dtype=torch.float32,
+                        device=spec.device) if splits > 1 else None)
     rc = kernels.library().fdc_extract_static(
         spec.data_ptr(), rows, n, starts.data_ptr(), c, mats.data_ptr(),
-        l2, k2, out.data_ptr(), kernels.stream_ptr(spec.device),
+        l2, k2, out.data_ptr(), bm, bn, splits, k_chunk, tail,
+        part.data_ptr() if part is not None else None,
+        kernels.stream_ptr(spec.device),
     )
     kernels.check(rc, "fdc_extract_static")
     extract_static.launches += 1

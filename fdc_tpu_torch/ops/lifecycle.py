@@ -12,7 +12,9 @@ as well. The CUDA source is ``csrc/lifecycle.cu``.
 Candidates arrive as the [B, 7K] pack of
 ``SegmentDetector._packed_candidates``: per block the groups (start bin,
 end bin, valid, wlog2, ext_start, ext_start % R, too_big), accepted
-candidates compacted to the front. Both versions read the geometry
+candidates compacted to the front (neither version relies on that: the
+plain one masks by the valid group, the kernel builds per-block lists
+of the valid candidates from it). Both versions read the geometry
 groups from the pack; they are ``candidate_geometry`` of the first two
 groups (the JAX scan path re-derives them; the tests pin the agreement).
 """
@@ -239,13 +241,12 @@ def slot_lifecycle_multi(packs, states, *, n_cands, rs, delays,
             pa_flags[0], pa_flags[1], pa_flags[2], pa_pu, pa_new["active"],
             pa_new["phase"], pa_new["lastpower"])]
         thresh = float(np.float32(pa_thresh))
-    threads = max(32, -(-max(ss) // 32) * 32)
     rc = kernels.library().fdc_slot_lifecycle(
         g_n, tab.ctypes.data, nb, packs_flat.data_ptr(),
         state_in.data_ptr(), ctr_in.data_ptr(), state_out.data_ptr(),
         ctr_out.data_ptr(), bflags.data_ptr(), pu.data_ptr(),
         max(n_cands), n_pa, *pa_ptrs, thresh, int(pa_r or 1), *pa_outs,
-        threads, kernels.stream_ptr(dev),
+        kernels.stream_ptr(dev),
     )
     kernels.check(rc, "fdc_slot_lifecycle")
     slot_lifecycle_multi.launches += 1

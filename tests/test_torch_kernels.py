@@ -122,6 +122,53 @@ def lifecycle_inputs(rng, nb, shapes, n_pa):
     return packs, states, kw
 
 
+def synthetic_lifecycle(rng, s, k, nb, compact, r=4):
+    """A [B, 7K] pack with 0 ... 8 valid candidates a block (a few blocks
+    with up to K), compacted to the front or at random columns, overlapping
+    intervals, 10% too big; a slot table half live, a few tombstones,
+    negative orders, and a quarter of the slots with another's interval
+    and order (ties)."""
+    pack = np.zeros((nb, 7, k), np.int32)
+    for b in range(nb):
+        nv = int(rng.integers(0, min(k, 8) + 1))
+        if b % 11 == 5:
+            nv = int(rng.integers(0, k + 1))  # a crowded block
+        cols = (np.arange(nv) if compact
+                else np.sort(rng.choice(k, nv, replace=False)))
+        cs = rng.integers(0, 600, nv)
+        es = cs - rng.integers(0, 9, nv)
+        pack[b, 0, cols] = cs
+        pack[b, 1, cols] = cs + rng.integers(1, 40, nv)
+        pack[b, 2, cols] = 1
+        pack[b, 3, cols] = rng.integers(2, 9, nv)
+        pack[b, 4, cols] = es
+        pack[b, 5, cols] = es % r
+        pack[b, 6, cols] = rng.random(nv) < 0.1
+    ds = rng.integers(0, 600, s)
+    de = ds + rng.integers(5, 60, s)
+    order = rng.permutation(s) - s // 3
+    # a quarter of the slots copy another's interval and order: ties
+    # between lanes and between one lane's registers (the lower slot wins)
+    dup = rng.choice(s, s // 4 + 1, replace=False)
+    src = rng.choice(s, dup.size)
+    ds[dup], de[dup], order[dup] = ds[src], de[src], order[src]
+    state = {
+        "active": rng.random(s) < 0.5,
+        "tomb": rng.random(s) < 0.05,
+        "det_start": ds.astype(np.int32),
+        "det_stop": de.astype(np.int32),
+        "ext_start": (ds - 4).astype(np.int32),
+        "wlog2": rng.integers(2, 9, s).astype(np.int32),
+        "phase": rng.integers(-3, 4, s).astype(np.int32),
+        "phase_inc": rng.integers(0, r, s).astype(np.int32),
+        "inactive": rng.integers(0, 4, s).astype(np.int32),
+        "order": order.astype(np.int32),
+        "alloc_counter": np.int32(s),
+        "dropped": np.int32(3),
+    }
+    return pack.reshape(nb, 7 * k), state
+
+
 def to(tree, dev):
     if isinstance(tree, dict):
         return {k: to(v, dev) for k, v in tree.items()}
@@ -370,22 +417,27 @@ def test_extract_shared_fold_kernel_edge_cases(case, r):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c, splits", [(16, 1), (5, 3)])
-def test_extract_static_kernel_unchanged_by_the_fold(c, splits):
-    """Kernel E (tile_gemm.cuh, no fold) on per-channel copies of one
-    matrix against kernel A unfolded. Where gemm_plan takes no k split
-    (16 channels) the two agree bit for bit: both sum each output's k
-    terms in order, one fmaf each. Where it splits k (the 5-channel
-    bucket, 84 tiles: three ranges) only the order of the sum differs,
-    so they agree at the plain version's tolerance."""
+@pytest.mark.parametrize("c, same", [(16, True), (5, True), (2, False)])
+def test_extract_static_kernel_unchanged_by_the_fold(c, same):
+    """Kernel E on per-channel copies of one matrix against kernel A
+    unfolded: one GEMM body (gather_gemm.cuh), each output's k terms
+    summed in order, one fmaf each, within each k range, and the ranges'
+    partial sums added in order. Where static_plan and gemm_plan take the
+    same k ranges (16 channels: none; 5: three) the two agree bit for
+    bit, whatever their tiles (E's fourth row tile of a channel also
+    computes its 513th row); where they differ (2 channels: eight ranges
+    against seven) only the order of the sum does, so they agree at the
+    plain version's tolerance."""
     dev = cuda_device()
     rng = np.random.default_rng(14)
-    assert extract_fused.gemm_plan(c * 513, 384, 512)[2] == splits
+    a_plan = extract_fused.gemm_plan(c * 513, 384, 512)
+    e_plan = extract_fused.static_plan(c, 513, 512, 384)
+    assert (a_plan[2:4] == e_plan[2:4]) == same
     spec, starts, mat = to(bucket(rng, 513, 4096, 256, c), dev)
     mats = mat[None].repeat(c, 1, 1).contiguous()
     e = extract_fused.extract_static(spec, starts, mats)
     a = extract_fused.extract_shared(spec, starts, mat)
-    if splits == 1:
+    if same:
         assert torch.equal(e, a)
     else:
         assert_close_to_max(a.cpu(), e.cpu())
@@ -419,6 +471,33 @@ def test_slot_lifecycle_kernel_matches_plain(shapes):
                                          **to(kw, dev))
     assert_tree_equal(list(got[0]), list(ref[0]), "segments")
     assert_tree_equal(got[1], ref[1], "powact")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact", [True, False],
+                         ids=["compacted", "uncompacted"])
+@pytest.mark.parametrize("k", [16, 32, 409])
+@pytest.mark.parametrize("s", [16, 32, 128, 512, 1024])
+def test_slot_lifecycle_kernel_schedule_shapes(s, k, compact):
+    """Kernel C at every slots-per-lane instantiation (S = 16 ... 1024)
+    and K = 16, 32, 409, on packs whose valid candidates sit at the front
+    or anywhere (the kernel builds its lists from the valid column), 100
+    blocks (several chunks), beside a second segment: flags, slot tables
+    and counters exact."""
+    dev = cuda_device()
+    rng = np.random.default_rng(s * 1000 + k + compact)
+    p1, st1 = synthetic_lifecycle(rng, s, k, 100, compact)
+    p2, st2 = synthetic_lifecycle(rng, 16, 16, 100, True)
+    packs = tuple(torch.from_numpy(p) for p in (p1, p2))
+    states = tuple({key: torch.from_numpy(np.array(v))
+                    for key, v in st.items()} for st in (st1, st2))
+    kw = dict(n_cands=(k, 16), rs=(4, 3), delays=(1, 2))
+    ref = lifecycle.slot_lifecycle_multi_plain(packs, states, **kw)
+    before = lifecycle.slot_lifecycle_multi.launches
+    got = lifecycle.slot_lifecycle_multi(to(packs, dev), to(states, dev),
+                                         **kw)
+    assert lifecycle.slot_lifecycle_multi.launches == before + 1
+    assert_tree_equal(list(got), list(ref), "segments")
 
 
 @pytest.mark.cuda
