@@ -21,8 +21,14 @@ with its wall seconds:
    the kernel build;
 2. each hand-written kernel against its plain PyTorch version on the card,
    on the inputs of every call it gets in each path's second step (the
-   first leaves the slot tables and burst states busy), kernel D on the
-   init / floor edges, kernel F at every N from 256 to 16384 and into
+   first leaves the slot tables and burst states busy; kernel B's
+   acceptance chain alone on each recorded call's first segment), kernel
+   D on the init / floor edges and its warp scan at B in {1, 31, 33,
+   512} x R in {1, 2, 4, 8}, kernel B on its edge cases
+   (``tests/test_torch_kernels.py`` ``PACK_EDGES``: every position a
+   rise, ratio ties, 0/0 with and without zero_floor, K below the ratio
+   count, touching intervals, empty blocks, a negative ext_start, 2048
+   cells), kernel F at every N from 256 to 16384 and into
    rows 1..B of an extended spectrum, kernel P on every FFT probe's
    inputs, kernel E on the function of ``tools/pallas_extract_proto.py``
    (the flagship's throughput bucket 0 with a matrix per channel), and
@@ -38,7 +44,9 @@ with its wall seconds:
    batches, compared with the card's step outputs and events;
 5. timing with CUDA events: each path's step on the kernel path (with
    its host enqueue time, its device busy time with the stream held and
-   the idle share that leaves, and a torch.profiler breakdown where the
+   the idle share that leaves, the aten operations a step dispatches
+   (views and allocations left out) beside the hand-written kernels'
+   launches, and a torch.profiler breakdown where the
    profiler sees the card: device launches, kernel time, the heaviest
    kernels; a profiler that records no device time is reported, not a
    failure), with the ``torch.fft``
@@ -47,10 +55,11 @@ with its wall seconds:
    and each phase-2 case's kernel against its plain version and, where
    one PyTorch call computes the same function, that call (by CUDA
    events over back-to-back calls, wrappers included; for kernels A-F
-   also the device time alone, by CUDA graph replay); kernel C's cases
-   name their blocks with candidates and the mean valid candidates of
-   such a block, and A's and E's their extraction error relative to the
-   output's max;
+   also the device time alone, by CUDA graph replay); kernel B's cases
+   name each segment's ratio chunks and acceptance chain (paired ranked
+   candidates a block), kernel C's their blocks with candidates and the
+   mean valid candidates of such a block, and A's and E's their
+   extraction error relative to the output's max;
 6. kernel A's and kernel E's tile and k split rules
    (``extract_fused.gemm_plan``, ``static_plan``): on their buckets of
    the paths, every tile width and 1-8 k splits (E: also with and
@@ -74,6 +83,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -483,8 +493,9 @@ def fmt_ms(ms):
 
 
 # kernels whose phase-5 cases also get their device time by graph_time
+# (not greedy_accept: its wrapper checks its intervals on the host)
 GRAPHED = ("forward_fft", "extract_shared", "extract_shared_fold",
-           "extract_static", "slot_lifecycle", "greedy_accept", "powact")
+           "extract_static", "slot_lifecycle", "candidate_packs", "powact")
 
 
 def held_time(fn, hold_ms):
@@ -527,6 +538,7 @@ def wrappers():
     )
 
     return (("extract_shared", extract_fused, "extract_shared"),
+            ("candidate_packs", detect, "candidate_packs"),
             ("greedy_accept", detect, "greedy_accept_batch"),
             ("slot_lifecycle", lifecycle, "slot_lifecycle_multi"),
             ("powact", powact, "powact_flags"),
@@ -545,7 +557,11 @@ def counters():
 KERNELS = {
     "extract_shared": ("fdc_tpu_torch/csrc/extract_shared.cu",
                        "fdc_tpu/ops/extract_pallas.py:96"),
-    "greedy_accept": ("fdc_tpu_torch/csrc/greedy_accept.cu",
+    "candidate_packs": ("fdc_tpu_torch/csrc/candidate_packs.cu",
+                        "fdc_tpu/ops/detect.py:183"),
+    # the same source's acceptance chain alone (greedy_accept_batch), off
+    # the paths since the candidate packs took the stage in
+    "greedy_accept": ("fdc_tpu_torch/csrc/candidate_packs.cu",
                       "fdc_tpu/ops/detect.py:183"),
     "slot_lifecycle": ("fdc_tpu_torch/csrc/lifecycle.cu",
                        "fdc_tpu/ops/lifecycle_pallas.py:53"),
@@ -602,8 +618,8 @@ def cufft_front_end():
 def clone(tree):
     if isinstance(tree, dict):
         return {k: clone(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(clone(v) for v in tree)
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(clone(v) for v in tree)  # named tuples: as given
     return tree.clone() if hasattr(tree, "clone") else tree
 
 
@@ -1049,10 +1065,10 @@ def call_case(path, name, fn, plain, a, kw):
             cs["unfolded"] = lambda: extract.apply_phase_pairs(
                 extract_fused.extract_shared(spec, starts, mat), rows, r)
         return cs
+    if name == "candidate_packs":
+        return pack_case(path, *a, kern=fn, plain=plain)
     out = plain(*a, **kw)
-    if name == "greedy_accept":
-        what = f"candidate rows {list(a[0].shape)}"
-    elif name == "slot_lifecycle":
+    if name == "slot_lifecycle":
         pa = kw.get("powact")
         what = (f"packs {[list(p.shape) for p in a[0]]}, S="
                 f"{[int(st['active'].numel()) for st in a[1]]}, burst C="
@@ -1064,6 +1080,116 @@ def call_case(path, name, fn, plain, a, kw):
     return case(name, lambda: fn(*a, **kw), lambda: plain(*a, **kw),
                 cmp_exact, f"{path} {what}", nbytes((a, kw)) + nbytes(out),
                 flops)
+
+
+def pack_case(what, powers, specs, kern=None, plain=None):
+    """Kernel B on G segments' powers. The bound: the powers read and the
+    packs written once, a division a ratio. The case names each segment's
+    [B, n_cells], its K and its rows' dependent steps: ratio chunks, and
+    the acceptance chain's one step a paired candidate among the ranked
+    rises (mean and most a block)."""
+    from fdc_tpu_torch.ops import detect
+
+    kern = kern or detect.candidate_packs
+    plain = plain or detect.candidate_packs_plain
+    out = plain(powers, specs)
+    segs = []
+    for p, spec in zip(powers, specs):
+        _, _, paired = detect.detect_edges(p, spec.thresh, spec.k_detect,
+                                           spec.zero_floor)
+        n = paired.sum(1).float()
+        segs.append(f"[{p.shape[0]}, {p.shape[1]}] K={spec.k_pack} "
+                    f"chunks {-(-(p.shape[1] - 1) // 32)} chain mean "
+                    f"{float(n.mean()):.2f} max {int(n.max())}")
+    rows = powers[0].shape[0]
+    return case("candidate_packs", lambda: kern(powers, specs),
+                lambda: plain(powers, specs), cmp_exact,
+                f"{what} {'; '.join(segs)}",
+                sum(p.shape[0] * p.shape[1] * 4 for p in powers)
+                + nbytes(out),
+                sum(rows * (p.shape[1] - 1) for p in powers))
+
+
+def greedy_case(what, power, spec):
+    """Kernel B's acceptance chain alone (``greedy_accept_batch``) on a
+    segment's ranked, paired candidates (``detect_edges`` of its
+    powers)."""
+    from fdc_tpu_torch.ops import detect
+
+    a = detect.detect_edges(power, spec.thresh, spec.k_detect,
+                            spec.zero_floor)
+    out = detect.greedy_accept_batch_plain(*a)
+    return case("greedy_accept", lambda: detect.greedy_accept_batch(*a),
+                lambda: detect.greedy_accept_batch_plain(*a), cmp_exact,
+                f"{what} candidate rows {list(a[0].shape)}",
+                nbytes(a) + nbytes(out))
+
+
+def pack_edge_cases():
+    """Kernel B on each edge case of ``tests/test_torch_kernels.py``
+    (``PACK_EDGES``: every position a rise, equal and infinite ratio ties,
+    0/0 with and without zero_floor, K below the ratio count, touching
+    intervals, empty blocks, a negative ext_start, 2048 cells), 512
+    blocks (64 at 2048 cells, where the plain version's K x K overlap
+    tensor is large), and the acceptance chain alone on the first."""
+    import torch
+
+    from fdc_tpu_torch.models.segment_detection import SegmentDetector
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_kernels import PACK_EDGES, pack_edge
+
+    out = []
+    for name in PACK_EDGES:
+        args, kw, power = pack_edge(name, 64 if name == "max-cells" else 512)
+        spec = SegmentDetector(*args, **kw).pack_spec
+        p = torch.from_numpy(power).to("cuda")
+        out.append(pack_case(f"edge {name}", [p], [spec]))
+        if name == "alternating":
+            out.append(greedy_case(f"edge {name}", p, spec))
+    return out
+
+
+def powact_case(what, nb, c, r, seed, delta=None, thresh=10.0):
+    """Kernel D on [nb, c] powers straddling the threshold, with the init
+    (lastpower = FLT_MAX) and floor (FLT_MIN) edges, phases in [0, R)."""
+    import torch
+
+    from fdc_tpu_torch.ops import powact
+
+    rng = np.random.default_rng(seed)
+    pw = np.exp(rng.normal(0.0, 2.0, (nb, c))).astype(np.float32)
+    pw[rng.random((nb, c)) < 0.02] = FLT_MIN  # floored silence
+    lp = np.exp(rng.normal(0.0, 2.0, c)).astype(np.float32)
+    lp[::3] = FLT_MAX  # freshly initialised channels
+    if delta is None:
+        delta = torch.from_numpy(rng.integers(-9, 10, c).astype(np.int32))
+    state = {
+        "active": torch.from_numpy(rng.random(c) < 0.5),
+        "lastpower": torch.from_numpy(lp),
+        "phase": torch.from_numpy(rng.integers(0, r, c).astype(np.int32)),
+    }
+    a = (torch.from_numpy(pw).to("cuda"),
+         {k: v.to("cuda") for k, v in state.items()}, delta.to("cuda"))
+    kw = dict(r=r, thresh=thresh)
+    if nb >= 31:
+        rise, fall = powact.powact_flags_plain(*a, **kw)[1][:2]
+        assert bool(rise.any()) and bool(fall.any()), "powact case: no edge"
+    return call_case(what, "powact", powact.powact_flags,
+                     powact.powact_flags_plain, a, kw)
+
+
+def powact_scan_cases():
+    """Kernel D's warp scan at B in {1, 31, 33, 512} (a run of one block,
+    lanes without blocks, whole runs) and R in {1, 2, 4, 8}, 32
+    channels."""
+    out = []
+    for nb in (1, 31, 33, 512):
+        for r in (1, 2, 4, 8):
+            cs = powact_case("scan", nb, 32, r, seed=nb * 10 + r)
+            cs["shape"] += f", R={r}"
+            out.append(cs)
+    return out
 
 
 def candidate_stats(packs, n_cands):
@@ -1083,32 +1209,12 @@ def candidate_stats(packs, n_cands):
 
 
 def powact_edge_case(fdc_pa):
-    """Kernel D at config 3's shapes on powers straddling the threshold,
-    with the init (lastpower = FLT_MAX) and floor (FLT_MIN) edges."""
-    import torch
-
-    from fdc_tpu_torch.ops import powact
-
-    dev = fdc_pa.device
+    """Kernel D at config 3's shapes and increments on powers straddling
+    the threshold, with the init and floor edges."""
     pa = fdc_pa.power_bank
-    rng = np.random.default_rng(3)
-    nb, c = fdc_pa.config.batch_blocks, pa.num_channels
-    pw = np.exp(rng.normal(0.0, 2.0, (nb, c))).astype(np.float32)
-    pw[rng.random((nb, c)) < 0.02] = FLT_MIN  # floored silence
-    lp = np.exp(rng.normal(0.0, 2.0, c)).astype(np.float32)
-    lp[::3] = FLT_MAX  # freshly initialised channels
-    state = {
-        "active": torch.from_numpy(rng.random(c) < 0.5).to(dev),
-        "lastpower": torch.from_numpy(lp).to(dev),
-        "phase": torch.from_numpy(rng.integers(0, 4, c).astype(np.int32)
-                                  ).to(dev),
-    }
-    a = (torch.from_numpy(pw).to(dev), state, pa.delta)
-    kw = dict(r=pa.relinvovl, thresh=pa.thresh)
-    rise, fall = powact.powact_flags_plain(*a, **kw)[1][:2]
-    assert bool(rise.any()) and bool(fall.any()), "powact case has no edges"
-    cs = call_case("powact32 edges", "powact", powact.powact_flags,
-                   powact.powact_flags_plain, a, kw)
+    cs = powact_case("powact32 edges", fdc_pa.config.batch_blocks,
+                     pa.num_channels, pa.relinvovl, 3, delta=pa.delta.cpu(),
+                     thresh=pa.thresh)
     cs["shape"] += ", FLT_MAX / FLT_MIN edges"
     return cs
 
@@ -1263,6 +1369,27 @@ def compare_cpu(name, make, x):
         f"their max), {len(ev_g)} events identical")
 
 
+def dispatched(fn):
+    """(aten operations one call of fn() dispatches, views and
+    allocations left out: on CUDA tensors each other one launches a
+    kernel or a copy; the hand-written kernels' launches)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not (func.is_view or str(func).startswith("aten.empty")):
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    cnt = counters()
+    before = sum(f.launches for f in cnt.values())
+    with Count() as c:
+        fn()
+    return c.n, sum(f.launches for f in cnt.values()) - before
+
+
 def time_step(name, fdc, x, card, top=8):
     """Phase 5 for one path: the step time by CUDA events (carry fed
     forward), then the same with the cuFFT front end and with kernel F
@@ -1321,6 +1448,7 @@ def time_step(name, fdc, x, card, top=8):
                     f"share {1 - busy / ms:.3f}")
     else:
         prof_txt = "profiler: recorded no device time on this card"
+    ops, kern = dispatched(step)
     with plain_path():
         ms_plain = cuda_time(step, 3)
     bs = fdc.batch_samples
@@ -1330,7 +1458,8 @@ def time_step(name, fdc, x, card, top=8):
         f"end {ms_cufft:.4f} ms between kernel F's {ms:.4f} and "
         f"{ms_again:.4f} ms; host enqueue "
         f"median {statistics.median(enqueue):.4f} ms; {held_txt}; "
-        f"{prof_txt} {card}")
+        f"{prof_txt}; dispatched {ops} aten ops + {kern} hand-written "
+        f"launches/step {card}")
     for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"  {us / 1e3 / n_steps:.4f} ms/step  {kname[:110]}")
 
@@ -1363,16 +1492,16 @@ def path_table():
         return lambda fdc, n: (capture(fdc.config, n), None)
 
     # every path's front end is kernel F
-    detection = ("forward_fft", "greedy_accept", "slot_lifecycle")
+    detection = ("forward_fft", "candidate_packs", "slot_lifecycle")
     return (
         ("flagship", channelizer(_flagship(batch_blocks=512)),
          on_config(scripted_capture),
-         ("forward_fft", "extract_shared", "greedy_accept",
+         ("forward_fft", "extract_shared", "candidate_packs",
           "slot_lifecycle")),
         ("example", channelizer(reference_example()),
          on_config(burst_capture),
          ("forward_fft", "extract_static", "extract_shared",
-          "greedy_accept", "slot_lifecycle")),
+          "candidate_packs", "slot_lifecycle")),
         ("powact32", channelizer(powact32()), on_config(burst_capture),
          ("forward_fft", "powact", "extract_shared")),
         ("dama16", channelizer(cfg2_dama16()), on_config(burst_capture),
@@ -1483,10 +1612,15 @@ def main() -> int:
     # -- phase 2: kernels against their plain versions --------------------
     # every kernel call of each path's step, replayed on the same inputs,
     # and kernel D on the init / floor edges
-    cases = [call_case(name, *call)
-             for name, p in paths.items()
-             for call in step_calls(p["fdc"], p["x"])]
+    cases = []
+    for name, p in paths.items():
+        for call in step_calls(p["fdc"], p["x"]):
+            cases.append(call_case(name, *call))
+            if call[0] == "candidate_packs":  # the acceptance chain alone
+                powers, specs = call[3]
+                cases.append(greedy_case(name, powers[0], specs[0]))
     cases.append(powact_edge_case(paths["powact32"]["fdc"]))
+    cases += powact_scan_cases() + pack_edge_cases()
     cases.append(extract_proto_case(paths["flagship"]["fdc"],
                                     paths["flagship"]["x"]))
     cases += fft_cases() + probe_cases() + extract_edge_cases()
@@ -1542,7 +1676,8 @@ def main() -> int:
     for name, p in paths.items():
         time_step(name, p["fdc"], p["x"], card)
     for cs in cases:
-        slow = cs["name"] in ("slot_lifecycle", "powact")
+        slow = cs["name"] in ("slot_lifecycle", "powact", "candidate_packs",
+                              "greedy_accept")
         k_ms = cuda_time(cs["kern"], 50)
         p_ms = cuda_time(cs["plain"], 3 if slow else 50)
         ent = summary[cs["name"]]

@@ -16,9 +16,11 @@ example and every BASELINE configuration (``flagship.py``). Kernels
 
 - A ``extract_shared.cu``: shared-matrix bucket extraction + power
   measures, and the quarter-turn phase fold of throughput buckets;
-- B ``greedy_accept.cu``: greedy candidate acceptance;
+- B ``candidate_packs.cu``: every detection segment's candidate packs
+  (edges, greedy acceptance, compaction, geometry) in one launch;
 - C ``lifecycle.cu``: slot lifecycles + the burst hysteresis chain;
-- D ``powact.cu``: the burst hysteresis chain of a bank without segments;
+- D ``powact.cu``: the burst hysteresis chain of a bank without segments
+  (a warp scan, shared with C through ``powact_chain.cuh``);
 - E ``extract_static.cu``: bucket extraction with a matrix per channel.
 """
 

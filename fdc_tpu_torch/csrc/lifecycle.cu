@@ -61,8 +61,9 @@
 // synchronise among themselves on named barrier 1. ext_start and wlog2,
 // which only allocation writes, live in shared memory; the slot state
 // the chain reads every block lives in registers. One extra block runs
-// the burst chain, a warp per channel: kernel D's chain, shared through
-// powact_chain.cuh. All segments and the burst bank share one launch.
+// the burst chain, a warp per channel: kernel D's chain (a warp scan),
+// shared through powact_chain.cuh, staging its flags in the block's
+// shared memory. All segments and the burst bank share one launch.
 // The TPU kernel's tier ladders, chunk closed forms, gap prefilter and
 // [1, S] row layout were TPU devices and are not reproduced.
 
@@ -341,13 +342,14 @@ __global__ void __launch_bounds__(THREADS, 1)
                      int* __restrict__ st_out, int* __restrict__ ctr_out,
                      uint8_t* __restrict__ bflags, int* __restrict__ pu_out,
                      int kmax, int chunk, int smax, PowactArgs pa) {
-  if (blockIdx.x == tab.n) {  // the burst chain, a warp per channel
-    for (int c = threadIdx.x >> 5; c < pa.n_chan; c += blockDim.x >> 5)
-      powact_channel(pa, c);
-    return;
-  }
   extern __shared__ int4 smem4[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
+  if (blockIdx.x == tab.n) {  // the burst chain, a warp per channel
+    const int w = threadIdx.x >> 5;
+    for (int c = w; c < pa.n_chan; c += blockDim.x >> 5)
+      powact_channel(pa, c, sm + w * POWACT_STAGE_BYTES);
+    return;
+  }
   const Layout L = layout(chunk, kmax, smax, SPL);
 
   const int g = blockIdx.x;
@@ -604,7 +606,10 @@ int launch(const SegTab& tab, int blocks, int nb, const void* packs,
   const int per = layout(2, kmax, smax, SPL).total -
                   layout(1, kmax, smax, SPL).total;
   const int chunk = max(1, min(MAX_CHUNK, (SMEM_BUDGET - fixed) / per));
-  const int bytes = layout(chunk, kmax, smax, SPL).total;
+  // the burst block stages its warps' flags in the same buffer
+  const int bytes =
+      max(layout(chunk, kmax, smax, SPL).total,
+          pa.n_chan > 0 ? (THREADS / 32) * POWACT_STAGE_BYTES : 0);
   auto* kern = lifecycle_kernel<SPL>;
   // the size varies with the call: opt in once to the most a block may
   // use, which bounds the launch's own size

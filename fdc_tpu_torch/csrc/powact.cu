@@ -6,10 +6,11 @@
 // slot-lifecycle launch, lifecycle.cu).
 //
 // What it computes, what bounds it and the design: powact_chain.cuh, the
-// chain this kernel shares with lifecycle.cu. Here one warp walks each
-// channel, WARPS channels per CUDA block. On BASELINE config 3 the bytes
-// are [512, 32] powers in and four [32, 512] flag planes out, ~0.2 MB,
-// 0.06 us at 3.35 TB/s; the time is the 512-step dependent chain.
+// chain this kernel shares with lifecycle.cu (a warp scan over the
+// blocks' maps). Here one warp takes each channel, WARPS channels per CUDA
+// block, each warp with its own staging in shared memory. On BASELINE
+// config 3 the bytes are [512, 32] powers in and four [32, 512] flag
+// planes out, ~0.2 MB, 0.06 us at 3.35 TB/s.
 
 #include "powact_chain.cuh"
 
@@ -18,8 +19,10 @@ namespace {
 constexpr int WARPS = 4;  // channels per CUDA block
 
 __global__ void __launch_bounds__(WARPS * 32) powact_kernel(PowactArgs pa) {
-  const int c = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (c < pa.n_chan) powact_channel(pa, c);  // a whole warp takes one side
+  __shared__ __align__(16) unsigned char stage[WARPS][POWACT_STAGE_BYTES];
+  const int w = threadIdx.x >> 5;
+  const int c = blockIdx.x * WARPS + w;
+  if (c < pa.n_chan) powact_channel(pa, c, stage[w]);  // a warp a channel
 }
 
 }  // namespace

@@ -1,5 +1,5 @@
-// The burst hysteresis chain of one channel, walked by one warp: the one
-// CUDA form of PowerActivationBank.scan_flags
+// The burst hysteresis chain of one channel, walked by one warp as a
+// scan: the one CUDA form of PowerActivationBank.scan_flags
 // (fdc_tpu/models/power_activation.py:184-212). Kernel D (powact.cu) runs
 // it for a burst bank alone, kernel C (lifecycle.cu) beside the segments;
 // both are held bit-exactly to ops/powact.py's plain version.
@@ -17,17 +17,31 @@
 // (no source including this may be built with fast math or use
 // __fdividef), and the threshold arrives already rounded to fp32.
 //
-// What bounds it on the H100: latency. Every block depends on the one
-// before, and the bytes are tiny. lastpower is always the previous
-// block's power whatever the state, so the two ratio tests leave the
-// serial chain: lane j divides for block b0 + j (its previous power by
-// shuffle), and two ballots turn the 32 outcomes into bit masks. The
-// chain itself is then 32 steps of register-only integer logic, which
-// every lane runs alike, keeping the results of its own block for one
-// coalesced store per plane; R is a power of two (the configuration
-// rounds relinvovl up to one), so the phase modulo is a mask, not an
-// integer division. The TPU kernel's closed-form quiet chunks were a TPU
-// device and are not reproduced.
+// What bounds it on the H100: latency. The bytes are tiny (BASELINE
+// config 3: [512, 32] powers in, four [32, 512] flag planes out, ~0.2 MB,
+// 0.06 us at 3.35 TB/s), and walked block by block every block depends on
+// the one before: 512 dependent steps.
+//
+// What the design does about it: the chain's state is (active, phase mod
+// R), and lastpower is the previous block's power whatever the state, so
+// the two ratio bits up = pwr / lastpower >= thr and dn = lastpower / pwr
+// >= thr are data alone, and one block acts on the state as a map of a
+// closed form: from active 0, up ? (1, set 2 delta) : (0, keep); from
+// active 1, (!dn, add delta). The phase operations {keep, add k, set c}
+// are closed under composition (set after anything is set; add k after
+// add j is add j + k; add k after set c is set c + k), so a map is two
+// (bit, operation) entries and maps compose associatively. A super-chunk
+// of up to 32 x LMAX blocks then takes three short passes instead of a
+// chain over its blocks: each lane composes the maps of its own
+// contiguous run of ceil(n / 32) blocks (reading its powers, the ratio
+// bits kept as two bit masks), a warp inclusive scan of the lanes' maps
+// (5 shuffle steps) gives every lane the state entering its run, and
+// each lane replays its run to produce the flags, staged in shared memory
+// and stored by the warp row by row, coalesced. About 16 + 5 + 16
+// dependent steps at B = 512 against 512. R is a power of two (the
+// configuration rounds relinvovl up to one), so every modulo is a mask.
+// The TPU kernel's closed-form quiet chunks were a TPU device and are not
+// reproduced.
 
 #pragma once
 
@@ -53,55 +67,161 @@ struct PowactArgs {
   float* lastpower_out;    // [n_chan]
 };
 
-// Channel c's chain over the nb blocks; called by all 32 lanes of a warp.
-__device__ __forceinline__ void powact_channel(const PowactArgs& pa, int c) {
+namespace powact_scan {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int LMAX = 16;          // blocks a lane's run
+constexpr int SC = 32 * LMAX;     // blocks a super-chunk
+// An operation entry: the active bit it leads to (OUT), the phase
+// operation (SET c, ADD k, or neither: keep) and its value c or k < R.
+constexpr unsigned OUT = 1u << 31, SET = 1u << 30, ADD = 1u << 29;
+constexpr unsigned VAL = ADD - 1u;
+
+}  // namespace powact_scan
+
+// a warp's staging: rise / fall / processed bytes, then phase_used ints,
+// one super-chunk's blocks each
+constexpr int POWACT_STAGE_BYTES = 7 * powact_scan::SC;
+
+// A block's map (or a run's): m[a] is the entry taken from active a.
+struct BurstMap {
+  unsigned m0, m1;
+};
+
+// op2 after op1; the result leads where op2 does
+__device__ __forceinline__ unsigned compose_op(unsigned e2, unsigned e1,
+                                               int r_mask) {
+  using namespace powact_scan;
+  if (e2 & SET) return e2;
+  if (!(e2 & ADD)) return (e2 & OUT) | (e1 & ~OUT);  // keep: op1's
+  if (!(e1 & (SET | ADD))) return e2;                // add after keep
+  return (e2 & OUT) | (e1 & (SET | ADD)) | ((e1 + e2) & r_mask);
+}
+
+// the map g after f (f's block first)
+__device__ __forceinline__ BurstMap compose(const BurstMap& g,
+                                            const BurstMap& f, int r_mask) {
+  using namespace powact_scan;
+  return {compose_op((f.m0 & OUT) ? g.m1 : g.m0, f.m0, r_mask),
+          compose_op((f.m1 & OUT) ? g.m1 : g.m0, f.m1, r_mask)};
+}
+
+// one block's map from its ratio bits; dm = delta mod R, d2 = 2 delta
+// mod R
+__device__ __forceinline__ BurstMap block_map(bool up, bool dn, int dm,
+                                              int d2) {
+  using namespace powact_scan;
+  return {up ? (OUT | SET | static_cast<unsigned>(d2)) : 0u,
+          (dn ? 0u : OUT) | ADD | static_cast<unsigned>(dm)};
+}
+
+// the state (a, ph) after a map
+__device__ __forceinline__ void apply(const BurstMap& m, bool& a, int& ph,
+                                      int r_mask) {
+  using namespace powact_scan;
+  const unsigned e = a ? m.m1 : m.m0;
+  a = (e & OUT) != 0u;
+  const int v = static_cast<int>(e & VAL);
+  ph = (e & SET) ? v : (e & ADD) ? (ph + v) & r_mask : ph;
+}
+
+// Channel c's chain over the nb blocks; called by all 32 lanes of a warp,
+// `stage` its POWACT_STAGE_BYTES of shared memory.
+__device__ __forceinline__ void powact_channel(const PowactArgs& pa, int c,
+                                               unsigned char* stage) {
+  using namespace powact_scan;
   const int lane = threadIdx.x & 31;
   const int nb = pa.nb;
-  bool a = pa.active[c] != 0;
-  int ph = pa.phase[c];
+  const int nc = pa.n_chan;
+  const int rm = pa.r_mask;
   const int d = pa.delta[c];
-  // floor modulo by the power of two R, as jnp / torch %
-  const int d2 = (2 * d) & pa.r_mask;
-  float lp = pa.lastpower[c];
+  // floor moduli by the power of two R, as jnp / torch %
+  const int dm = d & rm;
+  const int d2 = (2 * d) & rm;
+  bool a = pa.active[c] != 0;  // the state entering the super-chunk
+  int ph = pa.phase[c];
+  const float* col = pa.powers + c;  // block b at col[b * nc]
+  uint8_t* f_st = stage;             // [3][SC] rise, fall, processed
+  int* pu_st = reinterpret_cast<int*>(stage + 3 * SC);
   const size_t row = static_cast<size_t>(c) * nb;
-  for (int b0 = 0; b0 < nb; b0 += 32) {
-    const int bl = b0 + lane;
-    const bool in = bl < nb;
-    const float p =
-        in ? pa.powers[static_cast<size_t>(bl) * pa.n_chan + c] : 1.0f;
-    float prev = __shfl_up_sync(0xffffffffu, p, 1);
-    if (lane == 0) prev = lp;
-    const unsigned up = __ballot_sync(0xffffffffu, in && p / prev >= pa.thresh);
-    const unsigned dn = __ballot_sync(0xffffffffu, in && prev / p >= pa.thresh);
-    const int n = min(32, nb - b0);
-    bool rise_l = false, fall_l = false, proc_l = false;
-    int pu_l = 0;
-    for (int j = 0; j < n; ++j) {
-      const bool rise = !a && ((up >> j) & 1u);
-      const bool fall = a && ((dn >> j) & 1u);
-      const bool proc = rise || a;
-      const int pused = rise ? d : ph;
-      ph = rise ? d2 : (proc ? (ph + d) & pa.r_mask : ph);
-      a = (a || rise) && !fall;
-      if (lane == j) {
-        rise_l = rise;
-        fall_l = fall;
-        proc_l = proc;
-        pu_l = pused;
+  for (int base = 0; base < nb; base += SC) {
+    const int n = min(SC, nb - base);
+    const int len = (n + 31) / 32;
+    // the lane's run: blocks j0 ... j0 + nl - 1 of the super-chunk
+    const int j0 = lane * len;
+    const int nl = max(0, min(len, n - j0));
+    // 1. the run's ratio bits and map (its powers loaded first, all in
+    // flight at once)
+    const int b0 = base + j0;
+    float pw[LMAX];
+#pragma unroll
+    for (int t = 0; t < LMAX; ++t)
+      pw[t] = t < nl ? col[static_cast<size_t>(b0 + t) * nc] : 1.0f;
+    float prev = nl == 0   ? 1.0f
+                 : b0 == 0 ? pa.lastpower[c]
+                           : col[static_cast<size_t>(b0 - 1) * nc];
+    unsigned up = 0u, dn = 0u;
+    BurstMap m = {0u, OUT};  // identity: keep, active unchanged
+#pragma unroll
+    for (int t = 0; t < LMAX; ++t) {
+      if (t < nl) {
+        const bool u = __fdiv_rn(pw[t], prev) >= pa.thresh;
+        const bool w = __fdiv_rn(prev, pw[t]) >= pa.thresh;
+        up |= static_cast<unsigned>(u) << t;
+        dn |= static_cast<unsigned>(w) << t;
+        m = compose(block_map(u, w, dm, d2), m, rm);
+        prev = pw[t];
       }
     }
-    if (in) {
-      pa.rise[row + bl] = rise_l;
-      pa.fall[row + bl] = fall_l;
-      pa.processed[row + bl] = proc_l;
-      pa.phase_used[row + bl] = pu_l;
+    // 2. inclusive scan of the runs' maps: lane l's covers runs 0 ... l
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const BurstMap o = {__shfl_up_sync(FULL, m.m0, off),
+                          __shfl_up_sync(FULL, m.m1, off)};
+      if (lane >= off) m = compose(m, o, rm);
     }
-    lp = __shfl_sync(0xffffffffu, p, n - 1);
+    // the state after this lane's run; the one entering it is the
+    // previous lane's (the super-chunk's own for lane 0)
+    bool a_out = a;
+    int ph_out = ph;
+    apply(m, a_out, ph_out, rm);
+    const bool a_prev =
+        __shfl_up_sync(FULL, static_cast<int>(a_out), 1) != 0;
+    const int ph_prev = __shfl_up_sync(FULL, ph_out, 1);
+    bool ar = lane == 0 ? a : a_prev;
+    int pr = lane == 0 ? ph : ph_prev;
+    // 3. replay the run into the staging
+#pragma unroll
+    for (int t = 0; t < LMAX; ++t) {
+      if (t < nl) {
+        const bool rise = !ar && ((up >> t) & 1u);
+        const bool fall = ar && ((dn >> t) & 1u);
+        const bool proc = rise || ar;
+        pu_st[j0 + t] = rise ? d : pr;
+        pr = rise ? d2 : (proc ? (pr + d) & rm : pr);
+        ar = (ar || rise) && !fall;
+        f_st[j0 + t] = rise;
+        f_st[SC + j0 + t] = fall;
+        f_st[2 * SC + j0 + t] = proc;
+      }
+    }
+    a = __shfl_sync(FULL, static_cast<int>(a_out), 31) != 0;
+    ph = __shfl_sync(FULL, ph_out, 31);
+    __syncwarp();
+    // 4. the super-chunk's flags, row by row, coalesced
+    for (int i = lane; i < n; i += 32) {
+      const size_t o = row + base + i;
+      pa.rise[o] = f_st[i];
+      pa.fall[o] = f_st[SC + i];
+      pa.processed[o] = f_st[2 * SC + i];
+      pa.phase_used[o] = pu_st[i];
+    }
+    __syncwarp();
   }
   if (lane == 0) {
     pa.active_out[c] = a;
     pa.phase_out[c] = ph;
-    pa.lastpower_out[c] = lp;
+    pa.lastpower_out[c] = col[static_cast<size_t>(nb - 1) * nc];
   }
 }
 

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "fdc_extract_static": [_P, _I, _I, _P, _I, _P, _I, _I, _P, _I, _I, _I,
                            _I, _I, _P, _P],
     "fdc_greedy_accept": [_P, _P, _P, _P, _I, _I, _P],
+    "fdc_candidate_packs": [_I, _P, _P, _P, _I, _P, _P],
     "fdc_slot_lifecycle": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                            _I, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P,
                            _P, _P, _P, _P, _P],

@@ -32,6 +32,7 @@ from fdc_tpu_torch.models.segment_detection import (
     SegmentDetector,
     scan_slots_multi,
 )
+from fdc_tpu_torch.ops import detect
 from fdc_tpu_torch.runtime.emission import SegmentDetectionEmitter
 from fdc_tpu_torch.utils.logging import make_logger
 
@@ -114,8 +115,8 @@ class ActivityDetectionChannelizer(nn.Module):
         sf = torch.view_as_real(spec_ext[1:])
         sq = sf[..., 0] * sf[..., 0] + sf[..., 1] * sf[..., 1]
         powers = [sd.measure(sq) for sd in self.segments]
-        packs = [sd._packed_candidates(p)
-                 for sd, p in zip(self.segments, powers)]
+        packs = detect.candidate_packs(
+            powers, [sd.pack_spec for sd in self.segments])
         scans = scan_slots_multi(self.segments, states, packs)
         new_states, outs = [], []
         for sd, (st, flags), p in zip(self.segments, scans, powers):

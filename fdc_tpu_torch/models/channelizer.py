@@ -47,6 +47,7 @@ from fdc_tpu_torch.models.segment_detection import (
     scan_slots_multi,
 )
 from fdc_tpu_torch.models.throughput import ThroughputChannelizer
+from fdc_tpu_torch.ops import detect
 from fdc_tpu_torch.ops.extract import (
     bucket_folded,
     extract_bucket,
@@ -483,9 +484,11 @@ class FrequencyDomainChannelizer(nn.Module):
                 seg_powers.append(powers_fused[:, lo:hi])
             else:
                 seg_powers.append(sd.measure(sq))
-        seg_packed = [
-            sd._packed_candidates(p) for sd, p in zip(self.segments, seg_powers)
-        ]
+        # every segment's candidate pack in one kernel B launch: views of
+        # one flat buffer in kernel C's layout
+        seg_packed = detect.candidate_packs(
+            seg_powers, [sd.pack_spec for sd in self.segments]
+        ) if len(self.segments) else []
         return out, pa_powers, pa_ext, seg_powers, seg_packed
 
     def _scan_detections(self, carry_io, pa_powers, seg_packed):
@@ -529,8 +532,8 @@ class FrequencyDomainChannelizer(nn.Module):
         ``entry_states``, every part's state at the end of the previous
         batch: kills duplicate slots at the cuts (the lower part wins) and
         suppresses candidates a neighbor tracks. Updates ``carry_io`` and
-        ``seg_packed`` in place; returns {segment: killed [S] bool} for the
-        emitters (JAX: models/channelizer.py:567-595)."""
+        the packs of ``seg_packed`` in place; returns {segment: killed [S]
+        bool} for the emitters (JAX: models/channelizer.py:567-595)."""
         seg_killed = {}
         for i, (lo, hi) in self._split_neighbors.items():
             kill_from = [] if lo is None else [
@@ -539,10 +542,13 @@ class FrequencyDomainChannelizer(nn.Module):
             if hi is not None:
                 suppress_from.append(
                     SegmentDetector.split_foreign_view(entry_states[hi]))
-            carry_io[f"seg{i}"], seg_packed[i], seg_killed[i] = (
+            carry_io[f"seg{i}"], packed, seg_killed[i] = (
                 self.segments[i].reconcile_split(
                     entry_states[i], seg_packed[i], kill_from,
                     suppress_from))
+            # back into its place in the flat buffer kernel C reads
+            if packed is not seg_packed[i]:
+                seg_packed[i].copy_(packed)
         return seg_killed
 
     def _finish_detections(self, out, scans, spec_ext, pa_ext, seg_powers):

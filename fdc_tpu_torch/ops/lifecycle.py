@@ -9,14 +9,16 @@ per segment the scan body of ``SegmentDetector.scan_slots``
 ``ops.powact.powact_flags_plain``, the one definition kernel D is held to
 as well. The CUDA source is ``csrc/lifecycle.cu``.
 
-Candidates arrive as the [B, 7K] pack of
-``SegmentDetector._packed_candidates``: per block the groups (start bin,
+Candidates arrive as the [B, 7K] packs of ``ops.detect.candidate_packs``
+(kernel B): per block the groups (start bin,
 end bin, valid, wlog2, ext_start, ext_start % R, too_big), accepted
 candidates compacted to the front (neither version relies on that: the
 plain one masks by the valid group, the kernel builds per-block lists
 of the valid candidates from it). Both versions read the geometry
 groups from the pack; they are ``candidate_geometry`` of the first two
 groups (the JAX scan path re-derives them; the tests pin the agreement).
+Kernel B writes all segments' packs into one flat buffer at this
+kernel's pack offsets, which the kernel then reads in place.
 """
 
 from __future__ import annotations
@@ -136,6 +138,35 @@ def _scan_segment_plain(packed, state, k: int, r: int, delay: int):
     return _free_tombstones(st), (got, processed, emit, phase_used)
 
 
+def seg_table(nb, n_cands, rs, delays, ss):
+    """Kernel C's segment table (csrc/lifecycle.cu SegTab): int32 [G, 8]
+    rows (k, r, delay, s, pack_off, state_off, flag_off, pu_off), the
+    offsets into the flat buffers of the packs, slot tables, flags and
+    phases; and the flag and phase buffers' lengths."""
+    tab = np.zeros((len(n_cands), 8), np.int32)
+    pack_off = state_off = flag_off = pu_off = 0
+    for g, (k, r, d, s) in enumerate(zip(n_cands, rs, delays, ss)):
+        tab[g] = (k, r, d, s, pack_off, state_off, flag_off, pu_off)
+        pack_off += nb * 7 * k
+        state_off += 10 * s
+        flag_off += 3 * s * nb
+        pu_off += s * nb
+    return tab, flag_off, pu_off
+
+
+def _flat_packs(packs, tab):
+    """The packs as one flat buffer at the table's pack offsets: the
+    buffer itself where they are views of one at those offsets (kernel
+    B's output), else their concatenation."""
+    p0 = packs[0]
+    ptr = p0.untyped_storage().data_ptr()
+    if all(p.is_contiguous() and p.untyped_storage().data_ptr() == ptr
+           and p.storage_offset() == p0.storage_offset() + int(off)
+           for p, off in zip(packs, tab[:, 4])):
+        return p0
+    return torch.cat([p.reshape(-1) for p in packs])
+
+
 def slot_lifecycle_multi_plain(packs, states, *, n_cands, rs, delays,
                                powact=None, pa_r=None, pa_thresh=None):
     """Plain PyTorch version of :func:`slot_lifecycle_multi`."""
@@ -155,7 +186,9 @@ def slot_lifecycle_multi(packs, states, *, n_cands, rs, delays,
     """Run G segments' slot lifecycles (and the burst chain) over a batch.
 
     Args:
-      packs: G [B, 7K_g] int32 candidate packs (see module docstring).
+      packs: G [B, 7K_g] int32 candidate packs (see module docstring);
+        views of one flat buffer at :func:`seg_table`'s pack offsets
+        (``candidate_packs``' output) are read in place.
       states: G slot tables (``SegmentDetector.init_state`` dicts).
       n_cands / rs / delays: per-segment K_g, relinvovl, deactivation delay.
       powact: optional {powers [B, C] f32, lastpower [C] f32, active [C]
@@ -188,15 +221,8 @@ def slot_lifecycle_multi(packs, states, *, n_cands, rs, delays,
             raise ValueError(f"slot_lifecycle_multi: K and S must be in "
                              f"1..{_MAX_LANES}")
     # flat buffers with per-segment offsets (csrc/lifecycle.cu SegTab)
-    tab = np.zeros((g_n, 8), np.int32)
-    pack_off = state_off = flag_off = pu_off = 0
-    for g, (k, r, d, s) in enumerate(zip(n_cands, rs, delays, ss)):
-        tab[g] = (k, r, d, s, pack_off, state_off, flag_off, pu_off)
-        pack_off += nb * 7 * k
-        state_off += 10 * s
-        flag_off += 3 * s * nb
-        pu_off += s * nb
-    packs_flat = torch.cat([p.reshape(-1) for p in packs])
+    tab, flag_off, pu_off = seg_table(nb, n_cands, rs, delays, ss)
+    packs_flat = _flat_packs(packs, tab)
     state_in = torch.cat([
         torch.stack([st[key].to(torch.int32) for key in SLOT_KEYS]).reshape(-1)
         for st in states

@@ -169,6 +169,109 @@ def synthetic_lifecycle(rng, s, k, nb, compact, r=4):
     return pack.reshape(nb, 7 * k), state
 
 
+def _floor(nb, nc, rng):
+    """A noise floor whose ratios stay between the 6 dB thresholds."""
+    return (1.0 + 0.1 * rng.random((nb, nc))).astype(np.float32)
+
+
+def _carriers(p, rng, n, widths, levels):
+    """Lay ``n`` carriers a block at random cells over ``p``."""
+    nb, nc = p.shape
+    for b in range(nb):
+        for _ in range(n):
+            w = int(rng.integers(*widths))
+            c0 = int(rng.integers(0, nc - w))
+            p[b, c0:c0 + w] *= float(rng.uniform(*levels))
+    return p
+
+
+def _all_rises(nb, nc, rng):
+    # a rise at every position (ratios 1.05 ... 1.1 > 0.1 dB), no fall
+    steps = 1.05 + 0.05 * rng.random((nb, nc))
+    return np.cumprod(steps, 1).astype(np.float32)
+
+
+def _alternating(nb, nc, rng):
+    # 1, 100, 1, 100, ...: equal rises at every other cell (ties), each
+    # paired with the next fall, all touching: a full pack
+    p = np.ones((nb, nc), np.float32)
+    p[:, 1::2] = 100.0
+    return p
+
+
+def _zeros(nb, nc, rng):
+    # x / 0 = +inf rises (several a block: ties to the lower index) and
+    # 0 / 0, which is no edge, or with zero_floor a fall
+    p = _floor(nb, nc, rng)
+    for b in range(nb):
+        for c in rng.choice(nc - 4, 6, replace=False):
+            p[b, c:c + int(rng.integers(1, 4))] = 0.0
+    return p
+
+
+def _touching(nb, nc, rng):
+    # per block A = [a, f + 1) strongest, B starting at f + 1 (touches A
+    # from the right: accepted), C ending at a (touches A from the left:
+    # blocked, the test is e_j >= s_i)
+    p = np.ones((nb, nc), np.float32)
+    for b in range(nb):
+        c = int(rng.integers(1, nc - 24))
+        a, f = c + 6, c + 12
+        p[b, c + 1:a] = 20.0  # C: rise at c, fall at a - 1
+        p[b, a + 1:f + 1] = 100.0  # A: rise at a, fall at f
+        p[b, f + 2:f + 8] = 50.0  # B: rise at f + 1, fall at f + 7
+    return p
+
+
+def _busy(nb, nc, rng):
+    return _carriers(_floor(nb, nc, rng), rng, 12, (1, 9), (10.0, 1e4))
+
+
+def _wide(nb, nc, rng):
+    # one carrier over most of the segment: ext_w > N, ext_start < 0
+    p = _floor(nb, nc, rng)
+    p[:, 2:nc - 3] *= 1000.0
+    return p
+
+
+def _empty(nb, nc, rng):
+    return np.ones((nb, nc), np.float32)
+
+
+# kernel B's edge cases: name -> (SegmentDetector args, keywords, powers
+# maker (nb, n_cells, rng) -> [nb, n_cells] float32). Segdet's geometry
+# (4096 points, 90% of the band, 10-bin cells) has 369 cells, 368 ratios.
+_SEGDET = (0, 4096, 4, 0.05, 0.95, 6.0, 0.005, 0.2)
+PACK_EDGES = {
+    "all-rises": ((0, 4096, 4, 0.05, 0.95, 0.1, 0.005, 0.2),
+                  dict(max_candidates=0), _all_rises),
+    "all-rises-K16": ((0, 4096, 4, 0.05, 0.95, 0.1, 0.005, 0.2),
+                      dict(max_candidates=16), _all_rises),
+    "alternating": (_SEGDET, dict(max_candidates=0), _alternating),
+    "zeros": ((0, 1024, 4, 0.1, 0.6, 6.0, 0.02, 0.2),
+              dict(max_candidates=0), _zeros),
+    "zeros-zero-floor": ((0, 1024, 4, 0.1, 0.6, 6.0, 0.02, 0.2),
+                         dict(max_candidates=0, vcm=True), _zeros),
+    "truncation-K4": (_SEGDET, dict(max_candidates=4), _busy),
+    "touching": ((0, 1024, 4, 0.1, 0.6, 6.0, 0.02, 0.2),
+                 dict(max_candidates=0), _touching),
+    "empty": (_SEGDET, dict(max_candidates=16), _empty),
+    "negative-es": ((0, 1024, 4, 0.02, 0.98, 6.0, 0.02, 0.2),
+                    dict(max_candidates=0, max_extract_width=0), _wide),
+    "max-cells": ((0, 4096, 4, 0.25, 0.75, 6.0, 0.0002, 0.2),
+                  dict(max_candidates=0), _busy),
+}
+
+
+def pack_edge(name, nb, seed=0):
+    """(SegmentDetector args, keywords, [nb, n_cells] powers) of one of
+    kernel B's edge cases."""
+    args, kw, make = PACK_EDGES[name]
+    sd = SegmentDetector(*args, **kw)
+    rng = np.random.default_rng(seed)
+    return args, kw, make(nb, sd.geometry.n_cells, rng)
+
+
 def to(tree, dev):
     if isinstance(tree, dict):
         return {k: to(v, dev) for k, v in tree.items()}
@@ -213,6 +316,20 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     assert before == (extract_fused.extract_shared.launches,
                       detect.greedy_accept_batch.launches,
                       lifecycle.slot_lifecycle_multi.launches)
+
+
+def test_cpu_tensors_take_the_plain_version_packs(monkeypatch):
+    """candidate_packs on CPU tensors: the plain version, as views of one
+    flat buffer, no launch."""
+    monkeypatch.setattr(kernels, "library", lambda: pytest.fail("launched"))
+    args, kw, power = pack_edge("touching", 6)
+    sd = SegmentDetector(*args, **kw)
+    before = detect.candidate_packs.launches
+    packs = detect.candidate_packs([torch.from_numpy(power)] * 2,
+                                   [sd.pack_spec] * 2)
+    assert detect.candidate_packs.launches == before
+    assert packs[1].storage_offset() == packs[0].numel()
+    assert torch.equal(packs[0], packs[1])
 
 
 def test_cpu_tensors_take_the_plain_version_burst(monkeypatch):
@@ -456,6 +573,51 @@ def test_greedy_accept_kernel_matches_plain():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", list(PACK_EDGES))
+def test_candidate_packs_kernel_edges(name):
+    """Kernel B on each edge case, bit-equal to the plain version, one
+    launch."""
+    dev = cuda_device()
+    args, kw, power = pack_edge(name, 64)
+    sd = SegmentDetector(*args, **kw)
+    ref = detect.candidate_packs_plain([torch.from_numpy(power)],
+                                       [sd.pack_spec])[0]
+    before = detect.candidate_packs.launches
+    got = detect.candidate_packs([torch.from_numpy(power).to(dev)],
+                                 [sd.pack_spec])[0]
+    assert detect.candidate_packs.launches == before + 1
+    assert_tree_equal(got, ref, name)
+
+
+@pytest.mark.cuda
+def test_candidate_packs_kernel_segments():
+    """Several segments in one launch, their powers row-strided views of
+    one wider matrix (as the channelizer's measures are), a vcm segment
+    among them, 512 blocks: every pack bit-equal, one flat buffer at
+    kernel C's offsets."""
+    dev = cuda_device()
+    rng = np.random.default_rng(12)
+    sds = [SegmentDetector(0, 4096, 4, a, b, 6.0, 0.005, 0.2,
+                           max_candidates=k, vcm=v)
+           for a, b, k, v in [(0.05, 0.3, 32, False), (0.3, 0.55, 0, False),
+                              (0.55, 0.95, 16, True)]]
+    cells = [sd.geometry.n_cells for sd in sds]
+    wide = np.concatenate([_busy(512, c, rng) for c in cells] + [
+        np.ones((512, 5), np.float32)], 1)
+    edges = np.concatenate([[0], np.cumsum(cells)])
+    views = [torch.from_numpy(wide)[:, lo:hi]
+             for lo, hi in zip(edges[:-1], edges[1:])]
+    specs = [sd.pack_spec for sd in sds]
+    ref = detect.candidate_packs_plain(views, specs)
+    wide_d = torch.from_numpy(wide).to(dev)
+    got = detect.candidate_packs(
+        [wide_d[:, lo:hi] for lo, hi in zip(edges[:-1], edges[1:])], specs)
+    assert_tree_equal(list(got), list(ref), "packs")
+    offs, _ = detect.pack_offsets(512, [sd.k_pack for sd in sds])
+    assert [p.storage_offset() for p in got] == offs
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shapes", [
     [((0.55, 0.8), 16, 0, 0.02)],                     # the flagship form
     [((0.05, 0.3), 16, 8, 0.02), ((0.3, 0.55), 40, 4, 0.02),  # 2 warps
@@ -530,6 +692,39 @@ def test_powact_kernel_matches_plain(nb, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 2, 4, 8])
+@pytest.mark.parametrize("nb", [1, 31, 33, 512, 1100])
+def test_powact_kernel_scan_shapes(nb, r):
+    """Kernel D's warp scan at runs of one block, lanes with no block,
+    one to three super-chunks, and every R: flags and state exact."""
+    dev = cuda_device()
+    rng = np.random.default_rng(nb * 10 + r)
+    powers, state, delta = powact_inputs(rng, nb, 7)
+    state["phase"] = torch.from_numpy(rng.integers(0, r, 7).astype(np.int32))
+    ref = powact.powact_flags_plain(powers, state, delta, r=r, thresh=10.0)
+    got = powact.powact_flags(powers.to(dev), to(state, dev), delta.to(dev),
+                              r=r, thresh=10.0)
+    assert_tree_equal(got, ref, "powact")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [3, 33, 1100])
+def test_slot_lifecycle_kernel_burst_scan(nb):
+    """Kernel C's burst flags through the same warp scan (its block's
+    shared memory as the staging) beside a segment: exact."""
+    dev = cuda_device()
+    rng = np.random.default_rng(nb)
+    packs, states, kw = lifecycle_inputs(rng, nb, [((0.55, 0.8), 16, 0,
+                                                    0.02)], 9)
+    kw["pa_r"] = 8
+    ref = lifecycle.slot_lifecycle_multi_plain(packs, states, **kw)
+    got = lifecycle.slot_lifecycle_multi(to(packs, dev), to(states, dev),
+                                         **to(kw, dev))
+    assert_tree_equal(list(got[0]), list(ref[0]), "segments")
+    assert_tree_equal(got[1], ref[1], "powact")
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_bad_cuda_inputs():
     dev = cuda_device()
     rng = np.random.default_rng(4)
@@ -544,6 +739,18 @@ def test_wrappers_refuse_bad_cuda_inputs():
     spec, starts, mats = to(static_bucket(rng, 5, 256, 16, 3), dev)
     with pytest.raises(TypeError):
         extract_fused.extract_static(spec, starts, mats.double())
+    with pytest.raises(ValueError):  # outside the acceptance's bitmap
+        detect.greedy_accept_batch(starts[None] + 4000, starts[None] + 4010,
+                                   starts[None] >= 0)
+    args, kw, power = pack_edge("touching", 4)
+    spec = SegmentDetector(*args, **kw).pack_spec
+    p = torch.from_numpy(power).to(dev)
+    with pytest.raises(TypeError):
+        detect.candidate_packs([p.double()], [spec])
+    with pytest.raises(ValueError):  # more cells than the kernel takes
+        detect.candidate_packs([torch.ones(4, 2049, device=dev)], [spec])
+    with pytest.raises(ValueError):  # a column stride
+        detect.candidate_packs([p[:, ::2]], [spec])
     powers, state, delta = to(powact_inputs(rng, 8, 3), dev)
     with pytest.raises(TypeError):
         powact.powact_flags(powers, {**state, "active": state["phase"]},
