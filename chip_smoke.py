@@ -66,7 +66,16 @@ with its wall seconds:
    without its tail rows folded into the last tile), each held against
    the plain version and timed by CUDA graph replay, with the rule's
    choice ranked among them and each k split's error relative to the
-   output's max (``plan_sweep``).
+   output's max (``plan_sweep``);
+7. the host runtime (``runtime_phase``): the flagship and hunter4seg
+   through process() + flush() with the native and the Python emitters
+   (equal events, both host walls); ``python -m fdc_tpu_torch run`` on
+   the flagship in a process of its own, then split by ``--checkpoint`` /
+   ``--resume`` in this one; ``vcm`` on config 5b; and
+   ``StreamDriver.run_file`` over the native file source — events,
+   streams and event files equal to process() + flush() (vcm:
+   ``VcmPath.stream``), and the path's kernels launched in each
+   in-process run (counts zeroed just before, read just after).
 
 In the kernel summary JSON, ``ms``, ``plain_ms``, ``bound_ms`` and
 ``library_ms`` are sums over the kernel's phase-2 cases.
@@ -1564,6 +1573,231 @@ def check_path(name, p, res, kinds, chans, tally, fins):
             f"{min(amps):.4f}-{max(amps):.4f}, SNR >= {min(snrs):.1f} dB")
 
 
+# -- phase 7: the host runtime -------------------------------------------
+
+# the detection path's kernels, and the flagship's (kernel A's measures)
+DETECT_KERNELS = ("forward_fft", "candidate_packs", "slot_lifecycle")
+FLAGSHIP_KERNELS = DETECT_KERNELS + ("extract_shared",)
+
+
+def counted(what, expect, fn):
+    """fn() with every kernel's launch count zeroed just before and read
+    just after; fails if a kernel of ``expect`` was not launched.
+    Returns (fn's result, host seconds)."""
+    import torch
+
+    cnt = counters()
+    for f in cnt.values():
+        f.launches = 0
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k: f.launches for k, f in cnt.items() if f.launches}
+    for k in expect:
+        assert launches.get(k, 0) > 0, f"{k} was not launched by {what}"
+    log(f"phase 7: {what}: {wall:.2f} s (host clock); launches {launches}")
+    return out, wall
+
+
+def cli_outputs(*dirs):
+    """The joined outputs of command-line runs, each an ``--out-dir`` with
+    its ``--events-jsonl`` beside it (``<dir>.jsonl``): (event dicts with
+    nsamples and without the timestamped ID prefix, {throughput file:
+    samples}, {payload file without the prefix: samples})."""
+    events, streams, payloads = [], {}, {}
+    for d in dirs:
+        for line in d.with_suffix(".jsonl").read_text().splitlines():
+            ev = json.loads(line)
+            ev["ID"] = ev["ID"].split(".", 1)[1]
+            events.append(ev)
+        for f in sorted(d.iterdir()):
+            x = np.fromfile(f, np.complex64)
+            if f.name.startswith("throughput_ch"):
+                streams[f.name] = np.concatenate(
+                    [streams.get(f.name, np.zeros(0, np.complex64)), x])
+            else:
+                payloads[f.name.split(".", 1)[1]] = x
+    return events, streams, payloads
+
+
+def reference_outputs(results, payload_dir=None):
+    """:func:`cli_outputs` of in-process results (``payload_dir``: where
+    their channelizer's FileSink wrote the payloads, if it did)."""
+    events = []
+    for ev in (e for r in results for e in r.events):
+        d = event_meta(ev)
+        d["nsamples"] = int(len(ev.data))
+        events.append(d)
+    streams = {f"throughput_ch{i}.c64": np.concatenate(
+        [r.throughput[i] for r in results])
+        for i in range(len(results[0].throughput))}
+    payloads = {} if payload_dir is None else {
+        f.name.split(".", 1)[1]: np.fromfile(f, np.complex64)
+        for f in sorted(Path(payload_dir).iterdir())}
+    return events, streams, payloads
+
+
+def compare_cli(what, got, ref):
+    """Event metadata exact; streams within the stream tolerance of each
+    file's max; payloads as one stream."""
+    ev, streams, payloads = got
+    ev_ref, streams_ref, payloads_ref = ref
+    assert len(ev) == len(ev_ref), f"{what}: {len(ev)} vs {len(ev_ref)}"
+    for a, b in zip(ev, ev_ref):
+        assert a == b, (what, a, b)
+    assert streams.keys() == streams_ref.keys(), what
+    worst = 0.0
+    for name in streams:
+        assert streams[name].shape == streams_ref[name].shape, (what, name)
+        ok, err = close(streams[name], streams_ref[name], RTOL, ATOL)
+        assert ok, f"{what}: {name} max abs err {err}"
+        worst = max(worst, err)
+    assert sorted(payloads) == sorted(payloads_ref), what
+    if payloads:
+        ok, err = close(np.concatenate([payloads[k] for k in sorted(payloads)]),
+                        np.concatenate([payloads_ref[k]
+                                        for k in sorted(payloads)]),
+                        RTOL, ATOL)
+        assert ok, f"{what}: event files max abs err {err}"
+        worst = max(worst, err)
+    log(f"phase 7: {what}: {len(ev)} events, {len(streams)} streams, "
+        f"{len(payloads)} event files equal to the reference (max abs err "
+        f"{worst:.3g})")
+
+
+def emitter_walls(name, p, card):
+    """The path's process() + flush() with the Python and the native
+    emitters, alternated twice: equal events, and each run's host
+    seconds. Returns the native run's results."""
+    import torch
+
+    from fdc_tpu_torch import FrequencyDomainChannelizer
+    from fdc_tpu_torch.runtime.emission import NativeSegmentDetectionEmitter
+
+    walls, events, results = {False: [], True: []}, {}, None
+    for native in (False, True, False, True):
+        fdc = FrequencyDomainChannelizer(
+            p["fdc"].config.replace(native_emission=native), device="cuda")
+        assert isinstance(fdc.segment_emitters[0],
+                          NativeSegmentDetectionEmitter) == native
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = [fdc.process(p["x"]), fdc.flush()]
+        torch.cuda.synchronize()
+        walls[native].append(time.perf_counter() - t)
+        events[native] = [e for r in res for e in r.events]
+        if native:
+            results = res
+    compare_events(events[True], events[False], f"{name} native emitters")
+    fmt = ", ".join
+    log(f"phase 7: {name}: process() + flush() of {len(p['x'])} samples, "
+        f"{len(events[True])} events equal: Python emitters "
+        f"{fmt(f'{w:.4f}' for w in walls[False])} s, native emitters "
+        f"{fmt(f'{w:.4f}' for w in walls[True])} s (host clock) {card}")
+    return results
+
+
+def runtime_phase(paths, card):
+    """Phase 7: the host runtime on the card. The flagship and hunter4seg
+    with the native and the Python emitters (equal events, both host
+    walls); ``python -m fdc_tpu_torch run`` on the flagship in a process of
+    its own, and split by ``--checkpoint`` / ``--resume`` in this one;
+    ``vcm`` on config 5b; ``StreamDriver.run_file`` over the native file
+    source. Every run's outputs equal process() + flush() (VcmPath.stream
+    for vcm); the native emitters and the native ring are asked for
+    explicitly (``native_emission=True``, ``use_native=True``), so a g++
+    failure fails the phase instead of falling back."""
+    import io
+    import tempfile
+
+    from fdc_tpu_torch import (
+        FrequencyDomainChannelizer,
+        ProcessResult,
+        StreamDriver,
+    )
+    from fdc_tpu_torch.__main__ import main as cli
+
+    from fdc_tpu_torch.runtime import native
+
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[:1]
+    log(f"phase 7: native runtime {native._build()} ({'; '.join(gxx)})")
+    flag = paths["flagship"]
+    emitter_walls("flagship", flag, card)
+    emitter_walls("hunter4seg", paths["hunter4seg"], card)
+
+    def quiet(argv):
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert cli(argv) == 0, argv
+
+    cfg = flag["fdc"].config.replace(native_emission=True)
+    x = flag["x"]
+    cut = 2 * cfg.batch_blocks * cfg.inplen + 777  # a burst open, slots live
+    with tempfile.TemporaryDirectory(prefix="fdc_phase7_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "flagship.json").write_text(cfg.to_json())
+        x.tofile(tmp / "cap.c64")
+        x[:cut].tofile(tmp / "a.c64")
+        x[cut:].tofile(tmp / "b.c64")
+        ref_dir = tmp / "ref"
+        ref_dir.mkdir()
+        fdc = FrequencyDomainChannelizer(
+            cfg.replace(fileoutput=True, outputpath=str(ref_dir)),
+            device="cuda")
+        ref = reference_outputs([fdc.process(x), fdc.flush()], ref_dir)
+
+        def run_args(capture, out, *extra):
+            return ["run", str(tmp / "flagship.json"), str(tmp / capture),
+                    "--out-dir", str(tmp / out), "--events-jsonl",
+                    str(tmp / f"{out}.jsonl"), *extra]
+
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fdc_tpu_torch",
+             *run_args("cap.c64", "cli")],
+            cwd=Path(__file__).resolve().parent, capture_output=True,
+            text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        log(f"phase 7: python -m fdc_tpu_torch run (flagship, a process of "
+            f"its own): {time.perf_counter() - t:.2f} s (host clock, "
+            f"start-up included); "
+            + "; ".join(proc.stdout.strip().splitlines()[:5]))
+        compare_cli("run", cli_outputs(tmp / "cli"), ref)
+
+        ck = str(tmp / "state.ckpt")
+        counted("run --checkpoint, then run --resume (flagship)",
+                FLAGSHIP_KERNELS,
+                lambda: (quiet(run_args("a.c64", "head", "--checkpoint",
+                                        ck)),
+                         quiet(run_args("b.c64", "tail", "--resume", ck))))
+        compare_cli("run --checkpoint / --resume",
+                    cli_outputs(tmp / "head", tmp / "tail"), ref)
+
+        fdc = FrequencyDomainChannelizer(cfg, device="cuda")
+        drv = StreamDriver(fdc, use_native=True)
+        res, _ = counted("StreamDriver.run_file (flagship)", FLAGSHIP_KERNELS,
+                         lambda: drv.run_file(str(tmp / "cap.c64")))
+        assert drv.stats.samples_in == len(x)
+        compare_cli("StreamDriver.run_file", reference_outputs(res),
+                    (*ref[:2], {}))
+
+        vp = paths["vcm4seg"]
+        vcfg = vp["fdc"].config.replace(native_emission=True)
+        xv = vp["x"][:len(vp["x"]) // vcfg.inplen * vcfg.inplen]
+        (tmp / "cfg5b.json").write_text(vcfg.to_json())
+        xv.tofile(tmp / "vcm.c64")
+        counted("vcm (config 5b)", DETECT_KERNELS, lambda: quiet([
+            "vcm", str(tmp / "cfg5b.json"), str(tmp / "vcm.c64"),
+            "--out-dir", str(tmp / "vcm"), "--events-jsonl",
+            str(tmp / "vcm.jsonl")]))
+        events, _ = vp["fdc"].stream(xv)
+        ref_v = reference_outputs([ProcessResult(events=events)])
+        compare_cli("vcm", cli_outputs(tmp / "vcm"), (
+            *ref_v[:2], {e.filename.split(".", 1)[1]: e.data
+                         for e in events}))
+
+
 def main() -> int:
     import torch
 
@@ -1706,6 +1940,10 @@ def main() -> int:
     # -- phase 6: kernel A's tile and split rule against the others --------
     plan_sweep(card)
     phase_done(6)
+
+    # -- phase 7: the host runtime: CLI, checkpoint, StreamDriver ----------
+    runtime_phase(paths, card)
+    phase_done(7)
     log(f"total: {time.perf_counter() - t_run:.1f} s wall")
 
     rows = []

@@ -9,8 +9,11 @@ Covered: overlap-save framing, the FFT front-end, throughput channels,
 power-activated burst banks with or without detection segments, the
 fused throughput + burst buckets, segment detection with compacted and
 two-tier slot extraction, the host ``process`` / ``process_spectra`` /
-``flush`` loop with the Python emitters, and the multi-segment vcm
-detector (``ActivityDetectionChannelizer``) — the flagship, the upstream
+``flush`` loop with the Python or the native (C++) emitters, the
+multi-segment vcm detector (``ActivityDetectionChannelizer``), the host
+streaming runtime (``StreamDriver`` over the native sample ring,
+checkpoint / resume that cross-restores with ``fdc_tpu``, waterfalls) and
+the command line ``python -m fdc_tpu_torch`` — the flagship, the upstream
 example and every BASELINE configuration (``flagship.py``). Kernels
 (``csrc/``, built with nvcc on first use on a CUDA device):
 
@@ -35,5 +38,23 @@ from fdc_tpu_torch.models.channelizer import (
 
 __version__ = "0.1.0"
 
-__all__ = ["ActivityDetectionChannelizer", "ChannelizerConfig",
-           "FrequencyDomainChannelizer", "ProcessResult"]
+__all__ = ["ActivityDetectionChannelizer", "ChannelEvent",
+           "ChannelizerConfig", "FrequencyDomainChannelizer",
+           "LiveWaterfall", "ProcessResult", "StreamDriver", "Waterfall"]
+
+# imported on first use, as the JAX package does
+_LAZY = {
+    "StreamDriver": ("fdc_tpu_torch.runtime.stream", "StreamDriver"),
+    "Waterfall": ("fdc_tpu_torch.utils.waterfall", "Waterfall"),
+    "LiveWaterfall": ("fdc_tpu_torch.utils.waterfall", "LiveWaterfall"),
+    "ChannelEvent": ("fdc_tpu_torch.utils.events", "ChannelEvent"),
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module 'fdc_tpu_torch' has no attribute {name!r}")

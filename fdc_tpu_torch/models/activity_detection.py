@@ -9,14 +9,12 @@ normalization (:630-650), FLT_MIN zero-denominator edge ratios (:701-705,
 0/0 is a falling edge), the vcm segment geometry
 (``config.solve_segment_vcm``), and on the host the blockcount-from-1
 convention and inline maxblocks partial emission (the copied
-``SegmentDetectionEmitter``). All segments' lifecycle scans run in one
+emitters, native or Python). All segments' lifecycle scans run in one
 kernel C launch (``scan_slots_multi``); their candidates go through
 kernel B.
 """
 
 from __future__ import annotations
-
-from typing import List
 
 import numpy as np
 import torch
@@ -26,6 +24,7 @@ from fdc_tpu_torch.config import VerboseMode, solve_segment_vcm
 from fdc_tpu_torch.models.channelizer import (
     _pairs_to_complex,
     _to_host,
+    emitter_classes,
     resolve_device,
 )
 from fdc_tpu_torch.models.segment_detection import (
@@ -33,7 +32,6 @@ from fdc_tpu_torch.models.segment_detection import (
     scan_slots_multi,
 )
 from fdc_tpu_torch.ops import detect
-from fdc_tpu_torch.runtime.emission import SegmentDetectionEmitter
 from fdc_tpu_torch.utils.logging import make_logger
 
 __all__ = ["ActivityDetectionChannelizer", "ActivityDetectionRunner"]
@@ -143,14 +141,12 @@ class ActivityDetectionRunner:
 
     def __init__(self, adc: ActivityDetectionChannelizer, maxblocks: int,
                  file_sink, msg_output: bool, native_emission="auto"):
-        if native_emission is True:
-            raise NotImplementedError(
-                "fdc_tpu_torch does not port yet: native_emission=True "
-                "(the C++ emitters)")
+        # the native (C++) emitters or the Python ones, as the channelizer
+        # picks them ("auto": native when g++ builds the engine)
+        _, emitter_cls = emitter_classes(native_emission)
         self.adc = adc
-        self.emitters: List[SegmentDetectionEmitter] = [
-            SegmentDetectionEmitter(sd, maxblocks, file_sink, msg_output,
-                                    log=adc.log)
+        self.emitters = [
+            emitter_cls(sd, maxblocks, file_sink, msg_output, log=adc.log)
             for sd in adc.segments
         ]
         self._carry = None

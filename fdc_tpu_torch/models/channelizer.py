@@ -58,6 +58,8 @@ from fdc_tpu_torch.ops.extract_fused import mask_extent
 from fdc_tpu_torch.ops.fft import FOUR_STEP_MAX_N, forward_spectrum
 from fdc_tpu_torch.ops.framing import frame_blocks
 from fdc_tpu_torch.runtime.emission import (
+    NativePowerActivationEmitter,
+    NativeSegmentDetectionEmitter,
     PowerActivationEmitter,
     SegmentDetectionEmitter,
 )
@@ -109,11 +111,24 @@ class ProcessResult:
     blocks_processed: int = 0
 
 
+def emitter_classes(native_emission):
+    """(burst emitter class, segment emitter class): the native (C++) ones
+    for a true ``native_emission``, the Python ones for a false one, and
+    for ``"auto"`` the native ones when their library builds (JAX:
+    models/channelizer.py:226-240)."""
+    use_native = native_emission
+    if use_native == "auto":
+        from fdc_tpu_torch.runtime import native
+
+        use_native = native.available()
+    if use_native:
+        return NativePowerActivationEmitter, NativeSegmentDetectionEmitter
+    return PowerActivationEmitter, SegmentDetectionEmitter
+
+
 def _check_slice(cfg: ChannelizerConfig) -> None:
     """Refuse configurations that need parts of fdc_tpu not ported yet."""
     missing = []
-    if cfg.native_emission is True:
-        missing.append("native_emission=True (the C++ emitters)")
     if not cfg.use_mxu_fft:
         missing.append("use_mxu_fft=False (FFT-lowered subband transforms)")
     elif cfg.blocksize > FOUR_STEP_MAX_N:
@@ -277,16 +292,18 @@ class FrequencyDomainChannelizer(nn.Module):
                 )
                 pa_logs.append(lg)
 
-        # -- host emission layer (the Python emitters) ------------------------
+        # -- host emission layer: the native (C++) emitters, or the Python
+        # ones ("auto": native when g++ builds the engine) ------------------
         sink = FileSink(cfg.outputpath, self.log) if cfg.fileoutput else None
+        pa_cls, sd_cls = emitter_classes(cfg.native_emission)
         self.power_emitter = (
-            PowerActivationEmitter(self.power_bank, cfg.pow_act_maxblocks,
-                                   sink, cfg.msgoutput, channel_logs=pa_logs)
+            pa_cls(self.power_bank, cfg.pow_act_maxblocks, sink,
+                   cfg.msgoutput, channel_logs=pa_logs)
             if self.power_bank else None
         )
         self.segment_emitters = [
-            SegmentDetectionEmitter(sd, cfg.act_det_maxblocks, sink,
-                                    cfg.msgoutput, log=seg_logs[i])
+            sd_cls(sd, cfg.act_det_maxblocks, sink, cfg.msgoutput,
+                   log=seg_logs[i])
             for i, sd in enumerate(self.segments)
         ]
 
@@ -598,6 +615,15 @@ class FrequencyDomainChannelizer(nn.Module):
                                       np.complex64)
         self._spectra_mode = False
         self._samples_mode = False
+
+    def _host_extra_state(self) -> dict:
+        """Checkpoint hook: subclass-owned host state to snapshot. Base:
+        nothing (JAX: models/channelizer.py:703-709)."""
+        return {}
+
+    def _restore_host_extra_state(self, extra: dict):
+        """Checkpoint hook: restore what :meth:`_host_extra_state` saved
+        (called after the carry and emitter state are in place)."""
 
     def process(self, samples: np.ndarray) -> ProcessResult:
         """Buffered streaming entry point: any-length complex64 sample

@@ -275,11 +275,10 @@ def test_convert_roundtrip(pair):
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(native_emission=True),
     dict(use_mxu_fft=False),
     # the four-step forward FFT's kernel keeps a block in shared memory
     dict(blocksize=32768),
-], ids=["native", "fft-lowering", "four-step-over-16384"])
+], ids=["fft-lowering", "four-step-over-16384"])
 def test_refuses_unported(overrides):
     with pytest.raises(NotImplementedError):
         FrequencyDomainChannelizer(_flagship(**{**SMALL, **overrides}),

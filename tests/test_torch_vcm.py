@@ -335,9 +335,9 @@ def test_mixed_entry_points_raise():
 
 
 def test_vcm_construction_contract():
-    """The card is the default device (no CPU fallback), the native
-    emitters are not ported, and the block length is a power of two (as
-    the JAX package checks)."""
+    """The card is the default device (no CPU fallback), the runner takes
+    the native emitters when asked, and the block length is a power of
+    two (as the JAX package checks)."""
     kw = dict(SCENES["golden"][0])
     if torch.cuda.is_available():
         assert ActivityDetectionChannelizer(**kw).device.type == "cuda"
@@ -347,8 +347,12 @@ def test_vcm_construction_contract():
     adc = ActivityDetectionChannelizer(**kw, device="cpu")
     assert isinstance(adc, torch.nn.Module)
     assert all(sd.vcm for sd in adc.segments)
-    with pytest.raises(NotImplementedError):
-        adc.make_runner(native_emission=True)
+    from fdc_tpu_torch.runtime.emission import (
+        NativeSegmentDetectionEmitter,
+    )
+
+    assert all(isinstance(em, NativeSegmentDetectionEmitter)
+               for em in adc.make_runner(native_emission=True).emitters)
     with pytest.raises(ValueError, match="Blocklen"):
         ActivityDetectionChannelizer(**{**kw, "blocklen": 500},
                                      device="cpu")
