@@ -88,7 +88,23 @@ with its wall seconds:
    process on the same card; every run equal to phase 3's process() +
    flush(), each with its host wall beside the plain run's and its
    launches, the stage-A reach-back row bit-equal to the plain step's
-   carried row, and the hostpipe's bytes a batch each way.
+   carried row, and the hostpipe's bytes a batch each way;
+9. the sharded step (``sharded_phase``): ``ShardedChannelizer`` over
+   meshes of ranks that are streams of the card, each run cold then warm:
+   the flagship at 4x1, 2x2, 1x2 and 8x1 (time x chan ranks), hunter4seg
+   and split4 at 2x2 (scan ownership and cut views across chan ranks),
+   the example at 2x2 (kernel E's fused rows split), powact32 at 4x1
+   (kernel D), dama16 at 2x2 (kernel A's fold on every rank), segdet's
+   ``process_spectra`` at 2x2, the checkpoint split plain -> sharded ->
+   plain, the flagship through ``PipelineChannelizer(shard_time=2)`` on
+   four lanes, ``tools_torch/multihost_worker.py`` as two processes on
+   the card over the flagship's capture (gloo, host-staged) and the
+   CLI's ``--time-shards 2`` on this one card (the mesh's error). Every
+   run equal to phase 3's process() + flush(), with its host wall beside
+   the plain run's and its launches a step equal to the predicted ones
+   (``sharded_prediction``); every kernel call of each mesh run's second
+   step, and of the shard_time pipeline's first two batches, held
+   against its plain version (rank-local shapes).
 
 In the kernel summary JSON, ``ms``, ``plain_ms``, ``bound_ms`` and
 ``library_ms`` are sums over the kernel's phase-2 cases.
@@ -99,9 +115,11 @@ The line before the last is the kernel summary JSON; the last line is
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -645,10 +663,10 @@ def clone(tree):
     return tree.clone() if hasattr(tree, "clone") else tree
 
 
-def step_calls(fdc, x):
-    """Every kernel call of the path's second step on the card, the first
-    having left its carry (slot tables, burst states) busy: [(name,
-    wrapper, plain, args, kwargs)], the arguments cloned."""
+def recorded_calls(drive):
+    """Every kernel call ``drive()`` makes on the card: [(name, wrapper,
+    plain, args, kwargs)], the arguments cloned on the caller's stream
+    just before the call."""
     import torch
 
     calls = []
@@ -660,14 +678,22 @@ def step_calls(fdc, x):
         rec.launches = 0  # fn counts through its module's name, i.e. rec
         return rec
 
+    with swapped(record):
+        drive()
+    torch.cuda.synchronize()
+    return calls
+
+
+def step_calls(fdc, x):
+    """Every kernel call of the path's second step on the card, the first
+    having left its carry (slot tables, burst states) busy."""
+    import torch
+
     cfg, dev, bs = fdc.config, fdc.device, fdc.batch_samples
     carry, _ = fdc._device_step(fdc._device_init(),
                                 torch.from_numpy(x[:bs]).to(dev), 0)
-    with swapped(record):
-        fdc._device_step(carry, torch.from_numpy(x[bs:2 * bs]).to(dev),
-                         cfg.batch_blocks)
-    torch.cuda.synchronize()
-    return calls
+    return recorded_calls(lambda: fdc._device_step(
+        carry, torch.from_numpy(x[bs:2 * bs]).to(dev), cfg.batch_blocks))
 
 
 def case(name, kern, plain, cmp, shape, bytes_, flops=0.0, library=None):
@@ -1884,12 +1910,14 @@ def restart(fdc):
             e.set_state(st)
 
 
-def pipe_run(what, fdc, drive, ref, expect, plain, card, warm=True):
-    """One phase-8 run: ``drive()``'s results (``fdc`` the channelizer
-    that ends the run) held against ``ref``; its wall beside
+def pipe_run(what, fdc, drive, ref, expect, plain, card, warm=True,
+             tag="phase 8"):
+    """One phase-8 (or ``tag``) run: ``drive()``'s results (``fdc`` the
+    channelizer that ends the run) held against ``ref``; its wall beside
     ``plain``'s. With ``warm``, the stream again on the same channelizer
     (its lanes' new CUDA streams paid their first-use costs in the first
-    run), held and timed the same way."""
+    run), held and timed the same way. Returns the last run's launches
+    and steps."""
     walls = []
     for _ in range(2 if warm else 1):
         restart(fdc)
@@ -1899,9 +1927,10 @@ def pipe_run(what, fdc, drive, ref, expect, plain, card, warm=True):
         n_ev, err = compare_runs(what, res, ref)
         walls.append(f"{wall:.4f}")
     steps = fdc._t0 // fdc.config.batch_blocks
-    log(f"phase 8: {what}: {' then '.join(walls)} s (host clock) against "
+    log(f"{tag}: {what}: {' then '.join(walls)} s (host clock) against "
         f"plain {plain:.4f} s; {n_ev} events equal to phase 3 (max abs err "
         f"{err:.3g}); {steps} steps, launches {launches} {card}")
+    return launches, steps
 
 
 def reach_back_check(p):
@@ -2097,6 +2126,307 @@ def pipeline_phase(paths, card):
         hostpipe_run(flag, tmp, walls["flagship"], card)
 
 
+# -- phase 9: the sharded step over a mesh of ranks ----------------------
+
+
+def flagship_prediction(t, c):
+    """The flagship's launches a step at a T x C mesh: F on each time
+    rank, kernel A's measured throughput bucket on each time rank's
+    first chan rank and its fold on the others, the one-channel burst
+    bucket (padded to a row a chan rank) on every rank, B on each time
+    rank, C once."""
+    pred = {"forward_fft": t, "extract_shared": t + t * c,
+            "candidate_packs": t, "slot_lifecycle": 1}
+    if c > 1:
+        pred["extract_shared_fold"] = t * (c - 1)
+    return pred
+
+
+def sharded_prediction(name, t, c):
+    """Launches a step of a phase-9 run at a T x C mesh of one process.
+    hunter4seg / split4: no throughput bucket, C once an owner group (a
+    chan rank, four segments). The example: E's two fused buckets on
+    every rank, A's measured 1024 bucket on each time rank's first chan
+    rank and its fold on the others. powact32: its burst bucket (no
+    measures) on every rank, D once. dama16: the fold on every rank
+    (b % R == 0)."""
+    if name == "flagship":
+        return flagship_prediction(t, c)
+    common = {"forward_fft": t, "candidate_packs": t}
+    if name in ("hunter4seg", "split4"):
+        return {**common, "slot_lifecycle": min(c, 4)}
+    if name == "example":
+        pred = {**common, "extract_static": 2 * t * c, "extract_shared": t,
+                "slot_lifecycle": 1}
+        if c > 1:
+            pred["extract_shared_fold"] = t * (c - 1)
+        return pred
+    if name == "powact32":
+        return {"forward_fft": t, "extract_shared": t * c, "powact": 1}
+    assert name == "dama16", name
+    return {"forward_fft": t, "extract_shared_fold": t * c}
+
+
+def per_step(launches, steps):
+    return {k: v / steps for k, v in launches.items()}
+
+
+def assert_predicted(what, launches, steps, pred):
+    """The run's launches are ``steps`` times the predicted launches a
+    step, kernel by kernel."""
+    want = {k: v * steps for k, v in pred.items()}
+    assert launches == want, (
+        f"{what}: launches a step {per_step(launches, steps)}, predicted "
+        f"{pred}")
+
+
+def hold_calls(what, calls, expect, summary):
+    """Every recorded kernel call (rank-local shapes) against its plain
+    version on the same inputs, with phase 2's comparators; every kernel
+    of ``expect`` must be among them. The errors join the kernel
+    summary's."""
+    import torch
+
+    worst = {}
+    for call in calls:
+        cs = call_case(what, *call)
+        got = cs["kern"]()
+        torch.cuda.synchronize()
+        err = cs["cmp"](got, cs["plain"]())
+        ent = summary[cs["name"]]
+        ent["max_abs_err"] = max(ent["max_abs_err"], err)
+        worst[cs["name"]] = max(worst.get(cs["name"], 0.0), err)
+    missing = set(expect) - set(worst)
+    assert not missing, f"{what}: no call of {sorted(missing)} recorded"
+    log(f"phase 9: {what}: its {len(calls)} kernel calls match their plain "
+        f"versions; max abs err by kernel {worst}")
+
+
+def multihost_run(p, tmp, plain, card):
+    """``tools_torch/multihost_worker.py`` as two processes on the card
+    over the flagship's config and capture: a 4x2 mesh whose time axis
+    crosses the processes (gloo, host-staged). Both processes' events
+    equal (their samples' hashes too); process 0's results equal phase
+    3's."""
+    import pickle
+
+    cfg = p["fdc"].config
+    (tmp / "mh.json").write_text(cfg.to_json())
+    p["x"].tofile(tmp / "mh.c64")
+    worker = Path(__file__).resolve().parent / "tools_torch" / (
+        "multihost_worker.py")
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(worker), str(pid), "2",
+         f"file://{tmp / 'mh_store'}", "--cuda", "--config",
+         str(tmp / "mh.json"), "--capture", str(tmp / "mh.c64"), "--out",
+         str(tmp / "mh.pkl")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for pid in (0, 1)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=300)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall = time.perf_counter() - t
+    for proc, out in zip(procs, outs):
+        assert proc.returncode == 0, out[-4000:]
+    assert "PROC0 MULTIHOST==SINGLE OK" in outs[0], outs[0][-4000:]
+    lines = [[ln for ln in out.splitlines() if ln.startswith(key)]
+             for key, out in (("PROC0", outs[0]), ("PROC1", outs[1]))]
+    ev = [[ln.split("EVENTS", 1)[1] for ln in ls if " EVENTS " in ln]
+          for ls in lines]
+    assert ev[0] and ev[0] == ev[1], "the processes' events differ"
+    with open(tmp / "mh.pkl", "rb") as f:
+        res = pickle.load(f)
+    n_ev, err = compare_runs("multihost", res, p["ref"])
+    walls = []
+    for pid, ls in enumerate(lines):
+        m = next(re.match(r"PROC\d WALL (\S+) s STEPS (\d+) LAUNCHES (.*)$",
+                          ln) for ln in ls if " WALL " in ln)
+        walls.append(m.group(1))
+        # each process holds two time ranks of the 4x2 mesh
+        assert_predicted(f"multihost process {pid}",
+                         ast.literal_eval(m.group(3)), int(m.group(2)),
+                         flagship_prediction(2, 2))
+    log(f"phase 9: multihost (flagship, 2 processes x 4 ranks on the card, "
+        f"a 4x2 mesh, gloo): {n_ev} events equal to phase 3 (max abs err "
+        f"{err:.3g}) and equal in both processes; process() + flush() "
+        f"in each process: {walls} s against plain {plain:.4f} s; both "
+        f"processes {wall:.2f} s with start-up; each process's launches "
+        f"a step as predicted, {flagship_prediction(2, 2)} {card}")
+
+
+def idle_chain(fdc, card):
+    """Kernel C's chain alone: the flagship segment's slot table over
+    batches of blocks without a candidate, device time by CUDA graph
+    replay at three batch lengths; the slope is the chain's cost a block
+    (the wrapper's fixed kernels cancel)."""
+    import torch
+
+    from fdc_tpu_torch.ops import lifecycle
+
+    sd = fdc.segments[0]
+    times = {}
+    for nb in (32, 512, 2048):
+        packs = (torch.zeros((nb, 7 * sd.k_pack), dtype=torch.int32,
+                             device="cuda"),)
+        states = (sd.init_state("cuda"),)
+        times[nb] = graph_time(lambda p=packs, s=states: (
+            lifecycle.slot_lifecycle_multi(
+                p, s, n_cands=(sd.k_pack,), rs=(sd.relinvovl,),
+                delays=(sd.deactivation_delay,))))
+    slope = (None if None in times.values() else
+             (times[2048] - times[32]) / (2048 - 32) * 1e6)
+    log(f"phase 9: kernel C's idle chain (S={sd.max_slots}, "
+        f"K={sd.k_pack}, no candidates): device "
+        f"{', '.join(f'{nb} blocks {fmt_ms(t)}' for nb, t in times.items())}"
+        f"; {'not measured' if slope is None else f'{slope:.2f} ns'} a "
+        f"block {card}")
+
+
+def sharded_phase(paths, card, summary):
+    """Phase 9: the sharded step on the card, its ranks streams of the
+    one card. Every run is held against its path's phase-3 process() +
+    flush() and prints its host wall beside a new plain channelizer's and
+    the kernels it launched a step (counts zeroed just before the run,
+    read just after), which must equal the predicted ones; its kernel
+    calls are then held against their plain versions."""
+    import tempfile
+
+    import torch
+
+    from fdc_tpu_torch.parallel import (
+        PipelineChannelizer,
+        ShardedChannelizer,
+        make_mesh,
+    )
+    from fdc_tpu_torch.runtime.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    def sharded(p, t, c):
+        return ShardedChannelizer(p["fdc"].config, mesh=make_mesh(
+            t, c, ["cuda:0"] * (t * c)))
+
+    fold = FLAGSHIP_KERNELS + ("extract_shared_fold",)
+    runs = (
+        ("flagship", 4, 1, FLAGSHIP_KERNELS),
+        ("flagship", 2, 2, fold),
+        ("flagship", 1, 2, fold),
+        ("flagship", 8, 1, FLAGSHIP_KERNELS),
+        ("hunter4seg", 2, 2, DETECT_KERNELS),
+        ("split4", 2, 2, DETECT_KERNELS),
+        ("example", 2, 2, ("forward_fft", "extract_static",
+                           "extract_shared", "candidate_packs",
+                           "slot_lifecycle")),
+        ("powact32", 4, 1, ("forward_fft", "powact", "extract_shared")),
+        ("dama16", 2, 2, ("forward_fft", "extract_shared_fold")),
+    )
+    walls = {}
+    for name, t, c, expect in runs:
+        p = paths[name]
+        if name not in walls:
+            walls[name] = plain_wall(p)
+        fdc = sharded(p, t, c)
+        if name in ("hunter4seg", "split4"):
+            assert [o for o, _ in fdc._owner_groups] == [0, 1], (
+                fdc._owner_groups)
+        launches, steps = pipe_run(
+            f"{name}, {t}x{c} mesh", fdc,
+            lambda f=fdc, x=p["x"]: [f.process(x), f.flush()], p["ref"],
+            expect, walls[name], card, tag="phase 9")
+        pred = sharded_prediction(name, t, c)
+        assert_predicted(f"{name} {t}x{c}", launches, steps, pred)
+        log(f"phase 9: {name} {t}x{c}: launches a step "
+            f"{per_step(launches, steps)}, as predicted")
+        hold_calls(f"{name} {t}x{c}, its second step",
+                   step_calls(fdc, p["x"]), expect, summary)
+    flag = paths["flagship"]
+    idle_chain(flag["fdc"], card)
+
+    # segdet's vector mode, as phase 3's spectra_check
+    p = paths["segdet"]
+    spectra = np.concatenate(card_spectra(p["fdc"].config, p["x"], "cuda"))
+    sh = sharded(p, 2, 2)
+    res, wall, launches = timed(lambda: sh.process_spectra(spectra))
+    compare_events(res.events, p["ref"][0].events, "segdet process_spectra")
+    assert_predicted("segdet process_spectra 2x2", launches,
+                     sh._t0 // sh.config.batch_blocks,
+                     {"candidate_packs": 2, "slot_lifecycle": 1})
+    log(f"phase 9: segdet process_spectra, 2x2 mesh: {wall:.4f} s (host "
+        f"clock); {len(res.events)} events equal to phase 3's process(); "
+        f"launches {launches}, as predicted {card}")
+
+    cfg = flag["fdc"].config
+    x = flag["x"]
+    bs = cfg.batch_blocks * cfg.inplen
+    cuts = (bs + 555, 3 * bs + 777)  # bursts open, slots live
+    with tempfile.TemporaryDirectory(prefix="fdc_phase9_") as tmp:
+        tmp = Path(tmp)
+
+        def split():
+            a, b, c = flag["make"]("cuda"), sharded(flag, 2, 2), (
+                flag["make"]("cuda"))
+            head = a.process(x[:cuts[0]])
+            save_checkpoint(a, str(tmp / "a.ckpt"))
+            load_checkpoint(b, str(tmp / "a.ckpt"))
+            mid = b.process(x[cuts[0]:cuts[1]])
+            save_checkpoint(b, str(tmp / "b.ckpt"))
+            load_checkpoint(c, str(tmp / "b.ckpt"))
+            return [head, mid, c.process(x[cuts[1]:]), c.flush()]
+
+        res, wall, launches = timed(split)
+        n_ev, err = compare_runs("checkpoint split", res, flag["ref"])
+        log(f"phase 9: flagship checkpoint split plain -> 2x2 sharded -> "
+            f"plain: {wall:.4f} s (host clock, three channelizers built "
+            f"in it); {n_ev} events equal to phase 3 (max abs err "
+            f"{err:.3g}); launches {launches} {card}")
+
+        pipe = PipelineChannelizer(cfg, devices=["cuda:0"] * 4,
+                                   shard_time=2)
+        assert [len(g) for g in pipe.groups] == [2, 2]
+        launches, steps = pipe_run(
+            "flagship, pipeline of 4 lanes, shard_time 2", pipe,
+            lambda: [pipe.process(x), pipe.flush()], flag["ref"],
+            FLAGSHIP_KERNELS, walls["flagship"], card, tag="phase 9")
+        # a lane frames its run plus the reach-back block: F [b, N] and
+        # [1, N], the measured and the burst bucket; B a lane, C once
+        assert_predicted("pipeline shard_time 2", launches, steps,
+                         {"forward_fft": 4, "extract_shared": 4,
+                          "candidate_packs": 2, "slot_lifecycle": 1})
+        log(f"phase 9: flagship pipeline shard_time 2: launches a step "
+            f"{per_step(launches, steps)}, as predicted")
+        restart(pipe)
+        hold_calls("flagship pipeline shard_time 2, its first two batches",
+                   recorded_calls(lambda: pipe.process(x[:2 * bs])),
+                   FLAGSHIP_KERNELS, summary)
+        multihost_run(flag, tmp, walls["flagship"], card)
+
+        # the CLI on this card: a mesh larger than the devices
+        (tmp / "cli.json").write_text(cfg.to_json())
+        x[:bs].tofile(tmp / "cli.c64")
+        if torch.cuda.device_count() < 2:
+            t = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "fdc_tpu_torch", "run",
+                 str(tmp / "cli.json"), str(tmp / "cli.c64"),
+                 "--time-shards", "2"],
+                cwd=Path(__file__).resolve().parent, capture_output=True,
+                text=True, timeout=300)
+            msg = "mesh 2x1 needs 2 devices, have 1"
+            assert r.returncode != 0 and msg in r.stderr, (
+                r.returncode, r.stderr[-2000:])
+            log(f"phase 9: python -m fdc_tpu_torch run --time-shards 2 on "
+                f"one card: exit {r.returncode}, \"{msg}\" "
+                f"({time.perf_counter() - t:.1f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -2248,6 +2578,10 @@ def main() -> int:
     # -- phase 8: the MPMD batch pipeline and the hostpipe -----------------
     pipeline_phase(paths, card)
     phase_done(8)
+
+    # -- phase 9: the sharded step over meshes of ranks ---------------------
+    sharded_phase(paths, card, summary)
+    phase_done(9)
     log(f"total: {time.perf_counter() - t_run:.1f} s wall")
 
     rows = []

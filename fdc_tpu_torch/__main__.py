@@ -23,10 +23,11 @@ Usage:
       --hostpipe-worker 1:2 --hostpipe-connect 127.0.0.1:$(cat port.txt)
 
 ``--pipeline [N]`` runs the MPMD batch pipeline over N lanes (no N: every
-CUDA device; ``--cpu-devices N``: N CPU lanes), ``--hostpipe-*`` its
-cross-process leg. The SPMD flags of ``python -m fdc_tpu``
-(``--pipeline-shard-time``, ``--time-shards``, ``--chan-shards``) are
-parsed and refused: the port has no sharded step yet.
+CUDA device; ``--cpu-devices N``: N CPU lanes), with
+``--pipeline-shard-time T`` each worker a group of T time-sharded lanes,
+and ``--hostpipe-*`` its cross-process leg. ``--time-shards T
+--chan-shards C`` run the sharded step over a T x C mesh of those
+devices (too few raise the mesh's error).
 """
 
 from __future__ import annotations
@@ -42,15 +43,6 @@ import numpy as np
 
 __all__ = ["main"]
 
-# SPMD flag -> (default, the fdc_tpu module the flag needs and the port
-# lacks); the default, a run without the sharded step, is accepted
-_SPMD = {
-    "pipeline_shard_time": (1, "fdc_tpu/parallel/pipeline.py"),
-    "time_shards": (1, "fdc_tpu/parallel/sharded.py"),
-    "chan_shards": (1, "fdc_tpu/parallel/sharded.py"),
-}
-
-
 def _load_config(path: str):
     from fdc_tpu_torch.config import ChannelizerConfig
 
@@ -65,22 +57,11 @@ def _device(args) -> str:
 
 
 def _lanes(args):
-    """The pipeline's lanes: --cpu-devices N CPU lanes, one for --cpu,
-    else None (every CUDA device)."""
+    """The pipeline's lanes and the mesh's devices: --cpu-devices N CPU
+    lanes, one for --cpu, else None (every CUDA device)."""
     if _device(args) == "cpu":
         return ["cpu"] * max(1, args.cpu_devices)
     return None
-
-
-def _refuse_spmd(args):
-    """Exit non-zero on an SPMD flag, naming the module to port."""
-    for dest, (default, module) in _SPMD.items():
-        if getattr(args, dest, default) != default:
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(
-                f"fdc_tpu_torch does not port yet: {flag} (the multi-device "
-                f"module {module})"
-            )
 
 
 def _make_hostpipe(cfg, args):
@@ -137,8 +118,8 @@ def _make_hostpipe(cfg, args):
 
 def _make_channelizer(cfg, args):
     """The channelizer of ``run`` / ``serve``: a hostpipe end, the
-    pipeline, or the plain channelizer, with fdc_tpu's exclusivity
-    errors (fdc_tpu/__main__.py:215-246,366-387)."""
+    pipeline, the sharded step or the plain channelizer, with fdc_tpu's
+    exclusivity errors (fdc_tpu/__main__.py:215-248,366-405)."""
     hostpipe = (getattr(args, "hostpipe_owner", 0)
                 or getattr(args, "hostpipe_worker", ""))
     if hostpipe:
@@ -148,14 +129,12 @@ def _make_channelizer(cfg, args):
                 "--hostpipe-* and --pipeline/--time-shards/--chan-shards "
                 "are exclusive"
             )
-        _refuse_spmd(args)
         return _make_hostpipe(cfg, args)
     if args.pipeline:
         if args.time_shards > 1 or args.chan_shards > 1:
             raise SystemExit(
                 "--pipeline and --time-shards/--chan-shards are exclusive"
             )
-        _refuse_spmd(args)
         from fdc_tpu_torch.parallel.pipeline import (
             PipelineChannelizer,
             lane_devices,
@@ -166,8 +145,14 @@ def _make_channelizer(cfg, args):
             devs = devs[:args.pipeline]
         return PipelineChannelizer(cfg, devices=devs,
                                    dedicated_owner=args.dedicated_owner,
+                                   shard_time=args.pipeline_shard_time,
                                    scan_owners=args.pipeline_scan_owners)
-    _refuse_spmd(args)
+    if args.time_shards > 1 or args.chan_shards > 1:
+        from fdc_tpu_torch.parallel import ShardedChannelizer, make_mesh
+
+        mesh = make_mesh(n_time=args.time_shards, n_chan=args.chan_shards,
+                         devices=_lanes(args))
+        return ShardedChannelizer(cfg, mesh=mesh)
     from fdc_tpu_torch.models.channelizer import FrequencyDomainChannelizer
 
     return FrequencyDomainChannelizer(cfg, device=_device(args))
@@ -626,9 +611,7 @@ def _add_stream_args(p):
 
 
 def _add_multi_device_args(p, hostpipe):
-    """``python -m fdc_tpu``'s multi-device flags; the SPMD ones are
-    parsed, then refused."""
-    refused = "not ported yet: refused"
+    """``python -m fdc_tpu``'s multi-device flags."""
     p.add_argument("--pipeline", type=int, nargs="?", const=-1, default=0,
                    metavar="N",
                    help="MPMD batch pipeline over N lanes (no N = all); "
@@ -637,15 +620,21 @@ def _add_multi_device_args(p, hostpipe):
                    help="pipeline: the scan lane does no extraction (use "
                         "at >= 4 lanes)")
     p.add_argument("--pipeline-shard-time", type=int, default=1,
-                   metavar="T", help=refused)
+                   metavar="T",
+                   help="pipeline: each worker a group of T time-sharded "
+                        "lanes (batch_blocks and its runs' phase fold "
+                        "must divide)")
     p.add_argument("--pipeline-scan-owners", type=int, default=1,
                    metavar="N",
                    help="pipeline: spread segment scan chains over N owner "
                         "lanes (multi-segment configs)")
-    p.add_argument("--time-shards", type=int, default=1, help=refused)
-    p.add_argument("--chan-shards", type=int, default=1, help=refused)
+    p.add_argument("--time-shards", type=int, default=1,
+                   help="shard time-blocks over this many devices")
+    p.add_argument("--chan-shards", type=int, default=1,
+                   help="shard channel groups over this many devices")
     p.add_argument("--cpu-devices", type=int, default=0,
-                   help="N CPU lanes for --pipeline (implies --cpu)")
+                   help="N CPU lanes for --pipeline or the mesh (implies "
+                        "--cpu)")
     if hostpipe:
         p.add_argument("--hostpipe-owner", type=int, default=0,
                        metavar="N_WORKERS",

@@ -47,7 +47,7 @@ from fdc_tpu_torch.models.segment_detection import (
     scan_slots_multi,
 )
 from fdc_tpu_torch.models.throughput import ThroughputChannelizer
-from fdc_tpu_torch.ops import detect
+from fdc_tpu_torch.ops import detect as detect_ops
 from fdc_tpu_torch.ops.extract import (
     bucket_folded,
     extract_bucket,
@@ -430,11 +430,14 @@ class FrequencyDomainChannelizer(nn.Module):
             out["debug_spectrum"] = torch.view_as_real(spec)
         return new_carry, out
 
-    def _extract_static(self, spec, spec_ext, t0):
+    def _extract_static(self, spec, spec_ext, t0, detect=True):
         """Throughput / burst extraction and the detection power measures
         and candidate packs — everything that does not depend on
-        detection state. Returns (out, pa_powers, pa_ext, seg_powers,
-        seg_packed)."""
+        detection state. ``spec``: [b, N] rows of global blocks t0 ...
+        t0 + b - 1 (a batch, or a time rank's run of one), t0 a multiple
+        of b; ``detect=False`` skips the measures and packs (a rank that
+        extracts only its channel rows). Returns (out, pa_powers, pa_ext,
+        seg_powers, seg_packed)."""
         cfg = self.config
         r = cfg.relinvovl
         out = {}
@@ -452,9 +455,9 @@ class FrequencyDomainChannelizer(nn.Module):
             fused_pa_ext[w] = y[n_tp:]
         powers_fused = None
         if self.throughput:
-            # t0 is always a whole number of batches, so with B % R == 0
-            # the per-row phase pattern is static (extract_bucket_phased)
-            fold_phase = cfg.batch_blocks % r == 0
+            # t0 is a multiple of b, so with b % R == 0 the per-row phase
+            # pattern is static (extract_bucket_phased)
+            fold_phase = spec.shape[0] % r == 0
             mats = []
             for bucket in self.throughput.buckets:
                 if bucket.width in fused_mats:
@@ -465,8 +468,8 @@ class FrequencyDomainChannelizer(nn.Module):
                     y = extract_bucket(spec, starts, folded)
                     mats.append(self.throughput.finish_bucket(bucket, y, t0))
                     continue
-                if (self.measure_masks is not None and powers_fused is None
-                        and folded.dim() == 2):
+                if (detect and self.measure_masks is not None
+                        and powers_fused is None and folded.dim() == 2):
                     # the detection measures ride the first non-fused
                     # shared-matrix bucket's kernel A launch
                     y, powers_fused = extract_bucket_measured(
@@ -480,7 +483,8 @@ class FrequencyDomainChannelizer(nn.Module):
                 ))
             out["throughput_buckets"] = mats
         sq = None
-        if (self.power_bank or len(self.segments)) and powers_fused is None:
+        if (detect and (self.power_bank or len(self.segments))
+                and powers_fused is None):
             sf = torch.view_as_real(spec)
             sq = sf[..., 0] * sf[..., 0] + sf[..., 1] * sf[..., 1]
         pa_powers = None
@@ -491,7 +495,7 @@ class FrequencyDomainChannelizer(nn.Module):
                 lo, hi = self._measure_cols["powact"]
                 pa_powers = torch.clamp(powers_fused[:, lo:hi],
                                         min=float(_PA_FLOAT_MIN))
-            else:
+            elif detect:
                 pa_powers = pa.measure(sq)
             # burst extraction is flag-independent: every channel, every
             # row of spec_ext (the flags select what the host emits)
@@ -501,7 +505,7 @@ class FrequencyDomainChannelizer(nn.Module):
                     pa_ext[bucket.width] = extract_bucket(
                         spec_ext, *pa.tables(bucket))
         seg_powers = []
-        for i, sd in enumerate(self.segments):
+        for i, sd in enumerate(self.segments if detect else ()):
             if powers_fused is not None:
                 lo, hi = self._measure_cols[f"seg{i}"]
                 seg_powers.append(powers_fused[:, lo:hi])
@@ -509,9 +513,9 @@ class FrequencyDomainChannelizer(nn.Module):
                 seg_powers.append(sd.measure(sq))
         # every segment's candidate pack in one kernel B launch: views of
         # one flat buffer in kernel C's layout
-        seg_packed = detect.candidate_packs(
+        seg_packed = detect_ops.candidate_packs(
             seg_powers, [sd.pack_spec for sd in self.segments]
-        ) if len(self.segments) else []
+        ) if seg_powers else []
         return out, pa_powers, pa_ext, seg_powers, seg_packed
 
     def _scan_detections(self, carry_io, pa_powers, seg_packed):

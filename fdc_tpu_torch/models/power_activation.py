@@ -23,6 +23,7 @@ from fdc_tpu_torch.config import solve_power_channel
 from fdc_tpu_torch.ops.detect import band_power
 from fdc_tpu_torch.ops import powact
 from fdc_tpu_torch.ops.extract import bucket_folded
+from fdc_tpu_torch.models.throughput import BucketTables
 from fdc_tpu_torch.ops.windows import sine_flank_window_bank
 
 __all__ = ["PowerActivationBank"]
@@ -44,7 +45,7 @@ class _Bucket:
     name: str  # buffer prefix of the bucket's device tables
 
 
-class PowerActivationBank(nn.Module):
+class PowerActivationBank(BucketTables, nn.Module):
     """Bank of C power-activated channels. Buffers: ``measure_masks``
     [N, C], ``delta`` [C] int32, and per bucket ``{name}_starts`` /
     ``{name}_folded`` (gain 1; a shared matrix for kernel A, per-channel
@@ -107,11 +108,6 @@ class PowerActivationBank(nn.Module):
     @property
     def num_channels(self) -> int:
         return len(self.geometry)
-
-    def tables(self, bucket: _Bucket):
-        """(starts, folded) device tables of a bucket."""
-        return (getattr(self, f"{bucket.name}_starts"),
-                getattr(self, f"{bucket.name}_folded"))
 
     def init_state(self, device):
         """Per-channel carry: active flag, last-block power (float max

@@ -9,6 +9,8 @@ to one power-of-2 width).
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -19,7 +21,54 @@ from fdc_tpu_torch.config import WindowType, solve_throughput_channel
 from fdc_tpu_torch.ops.extract import apply_phase_pairs, bucket_folded
 from fdc_tpu_torch.ops.windows import base_window
 
-__all__ = ["ThroughputChannelizer"]
+__all__ = ["BucketTables", "ThroughputChannelizer", "split_rows"]
+
+
+def split_rows(a, parts: int):
+    """Zero-pad axis 0 of ``a`` (numpy or a tensor) to a multiple of
+    ``parts`` and split it into ``parts`` equal slices (JAX:
+    ``parallel/sharded.py``'s ``_pad_rows`` / ``_split_rows``)."""
+    pad = (-a.shape[0]) % parts
+    if pad:
+        if isinstance(a, np.ndarray):
+            a = np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
+        else:
+            a = torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+    m = a.shape[0] // parts
+    return [a[r * m:(r + 1) * m] for r in range(parts)]
+
+
+class BucketTables:
+    """The width buckets of a channel bank (an ``nn.Module`` with
+    ``buckets``, each with ``starts``, ``windows``, ``channel_ids`` and
+    the buffers ``{name}_starts`` / ``{name}_folded``)."""
+
+    def tables(self, bucket):
+        """(starts, folded) device tables of a bucket."""
+        return (getattr(self, f"{bucket.name}_starts"),
+                getattr(self, f"{bucket.name}_folded"))
+
+    def row_slice(self, c: int, parts: int):
+        """Chan rank ``c`` of ``parts``: a copy of this bank whose every
+        bucket holds the rank's zero-padded slice of its channel rows
+        (starts, windows and per-channel matrices; a shared matrix is
+        every rank's), numbered from 0. The other buffers and attributes
+        are this bank's."""
+        out = copy.copy(self)
+        out.__dict__["_buffers"] = dict(self._buffers)
+        out.buckets = []
+        for b in self.buckets:
+            starts, folded = self.tables(b)
+            out._buffers[f"{b.name}_starts"] = (
+                split_rows(starts, parts)[c].contiguous())
+            if folded.dim() == 3:
+                out._buffers[f"{b.name}_folded"] = (
+                    split_rows(folded, parts)[c].contiguous())
+            rows = split_rows(b.starts, parts)[c]
+            out.buckets.append(dataclasses.replace(
+                b, channel_ids=tuple(range(len(rows))), starts=rows,
+                windows=split_rows(b.windows, parts)[c]))
+        return out
 
 
 @dataclass(frozen=True)
@@ -32,7 +81,7 @@ class _Bucket:
     name: str  # buffer prefix of the bucket's device tables
 
 
-class ThroughputChannelizer(nn.Module):
+class ThroughputChannelizer(BucketTables, nn.Module):
     """Width-bucketed fixed-channel extractor. Buffers per bucket:
     ``{name}_starts`` [C] int32 and ``{name}_folded`` (window * gain l *
     trim * IDFT, rows interleaved): [2l, 2k] float32 shared by the bucket
@@ -79,11 +128,6 @@ class ThroughputChannelizer(nn.Module):
     @property
     def num_channels(self) -> int:
         return len(self.geometry)
-
-    def tables(self, bucket: _Bucket):
-        """(starts, folded) device tables of a bucket."""
-        return (getattr(self, f"{bucket.name}_starts"),
-                getattr(self, f"{bucket.name}_folded"))
 
     def finish_bucket(self, bucket: _Bucket, y: torch.Tensor, t0: int,
                       prephased: bool = False) -> torch.Tensor:

@@ -240,7 +240,7 @@ class HostPipelineOwner(PipelineChannelizer):
                  bind_addr: str = "127.0.0.1", timeout: float = 240.0,
                  **kwargs):
         super().__init__(config, **kwargs)
-        if self._owner_groups:
+        if self._owner_groups or self.shard_time > 1:
             raise ValueError(
                 "HostPipelineOwner composes across HOSTS; in-process "
                 "shard_time/scan_owners composition is not supported "
@@ -423,7 +423,7 @@ class HostPipelineWorker(PipelineChannelizer):
                  owner_addr: str = "127.0.0.1", owner_port: int = 0,
                  timeout: float = 240.0, **kwargs):
         super().__init__(config, **kwargs)
-        if self._owner_groups:
+        if self._owner_groups or self.shard_time > 1:
             raise ValueError(
                 "HostPipelineWorker does not compose with in-process "
                 "shard_time/scan_owners"

@@ -15,38 +15,41 @@ dependencies into three stages:
 - **stage C (worker lane w)**: the detection-slot extraction on the
   worker's spectrum, given the owner's slot tables and plans.
 
-A lane is one entry of ``devices``: entries may repeat, and on CUDA each
-lane has a ``torch.cuda.Stream`` of its own, so several lanes on one card
-run as concurrent streams. ``devices[0]`` owns the scan chain (the
-carry); every lane extracts in round-robin batch order, or with
-``dedicated_owner=True`` the leading ``max(1, scan_owners)`` lanes are
-reserved as the owner pool and only the others extract. With
-``scan_owners > 1`` on a multi-segment config the segments' scan chains
-spread round-robin over the leading lanes (the burst chain rides lane 0).
+A lane is one entry of ``devices`` (``parallel.lanes``): entries may
+repeat, and on CUDA each lane has a ``torch.cuda.Stream`` of its own, so
+several lanes on one card run as concurrent streams. ``devices[0]`` owns
+the scan chain (the carry); every lane extracts in round-robin batch
+order, or with ``dedicated_owner=True`` the leading ``max(1,
+scan_owners)`` lanes are reserved as the owner pool and only the others
+extract. With ``scan_owners > 1`` on a multi-segment config the
+segments' scan chains spread round-robin over the leading lanes (the
+burst chain rides lane 0).
+
+With ``shard_time > 1`` (the pipeline x SPMD composition) each worker is
+a group of ``shard_time`` consecutive worker lanes: the group's lane t
+runs stages A and C on blocks [t*b, (t+1)*b) of the batch, b = B /
+shard_time, framed from its own host-fed run of samples (one leading
+block recomputes the previous run's last spectrum row), so the time runs
+need no hand-off between lanes. Their powers and packs are joined on the
+scan lane; the duplicated reach-back rows of the row-family outputs are
+dropped on the host when the batch is consumed.
 
 Ordering: the host enqueues A, B and C of each batch on their lanes'
-streams; a lane that reads what another lane made first waits for that
-lane's stream (``Stream.wait_stream``) and records the tensor on its own
-stream (``Tensor.record_stream``: the caching allocator would otherwise
-hand the memory out again while the reader still runs). A batch's
-outputs are read on the host only after the event its worker lane
-records at the end of stage C, which follows every stage it waited for.
-The host keeps up to ``window`` batches in flight and consumes them in
-order, so it never blocks on the newest batch.
+streams, with the hand-offs of ``parallel.lanes``. A batch's outputs are
+read on the host only after the event each of its worker lanes records at
+the end of stage C, which follows every stage it waited for. The host
+keeps up to ``window`` batches in flight and consumes them in order, so
+it never blocks on the newest batch.
 
 Results equal :class:`FrequencyDomainChannelizer`'s: stage A recomputes
 the same spectra (on the card the reach-back row is kernel F's [1, N]
 call, bit-equal to row B of the previous batch's [B, N] call), stage B
 runs the same scans on the same powers, stage C the same slot
-extraction. ``shard_time > 1`` (each worker a group of time-sharded
-devices) is the pipeline x SPMD composition, which needs the sharded step
-and is not ported yet.
+extraction.
 """
 
 from __future__ import annotations
 
-import contextlib
-import copy
 from typing import List, Optional
 
 import numpy as np
@@ -56,59 +59,12 @@ from fdc_tpu_torch.config import ChannelizerConfig
 from fdc_tpu_torch.models.channelizer import (
     FrequencyDomainChannelizer,
     _pairs_to_complex,
-    resolve_device,
-)
-from fdc_tpu_torch.models.segment_detection import (
-    SegmentDetector,
-    scan_slots_multi,
 )
 from fdc_tpu_torch.ops.fft import forward_spectrum
 from fdc_tpu_torch.ops.framing import frame_blocks
+from fdc_tpu_torch.parallel.lanes import Lanes, lane_devices, merge_rows
 
 __all__ = ["PipelineChannelizer", "lane_devices"]
-
-
-def lane_devices(devices) -> List[torch.device]:
-    """The lanes' torch devices: every CUDA device when ``devices`` is
-    empty (there is no CPU fallback), else the given entries, repeats
-    kept, a bare ``"cuda"`` read as the current CUDA device."""
-    if not devices:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "fdc_tpu_torch: no CUDA device (the kernels run on the "
-                "card); pass devices=['cpu', ...] for their plain PyTorch "
-                "versions"
-            )
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    out = []
-    for d in devices:
-        d = resolve_device(d)
-        if d.type == "cuda" and d.index is None:
-            d = torch.device("cuda", torch.cuda.current_device())
-        out.append(d)
-    return out
-
-
-def _tree_map(fn, tree):
-    """fn over the tensor leaves of nested dicts / lists / tuples (None
-    leaves stay None)."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return None if tree is None else fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    elif isinstance(tree, torch.Tensor):
-        yield tree
 
 
 def _complex_to_pairs(z: np.ndarray) -> np.ndarray:
@@ -117,7 +73,11 @@ def _complex_to_pairs(z: np.ndarray) -> np.ndarray:
     return z.view(np.float32).reshape(*z.shape, 2)
 
 
-class PipelineChannelizer(FrequencyDomainChannelizer):
+def _host(t):
+    return t if isinstance(t, np.ndarray) else t.cpu().numpy()
+
+
+class PipelineChannelizer(Lanes, FrequencyDomainChannelizer):
     """FrequencyDomainChannelizer whose batches pipeline over lanes.
 
     Usage::
@@ -140,18 +100,12 @@ class PipelineChannelizer(FrequencyDomainChannelizer):
                  devices: Optional[List] = None, window: int = 0,
                  dedicated_owner: bool = False, shard_time: int = 1,
                  scan_owners: int = 1, **kwargs):
-        if int(shard_time) < 1:
+        self.shard_time = int(shard_time)
+        if self.shard_time < 1:
             raise ValueError("shard_time must be >= 1")
-        if int(shard_time) > 1:
-            raise NotImplementedError(
-                "fdc_tpu_torch does not port yet: shard_time > 1 (the "
-                "pipeline x SPMD composition of fdc_tpu/parallel/"
-                "pipeline.py over the sharded step of fdc_tpu/parallel/"
-                "sharded.py)"
-            )
         devs = lane_devices(devices)
         super().__init__(config, device=devs[0], **kwargs)
-        self.devices = devs
+        self._init_lanes(devs)
         # with a dedicated owner the scan lanes do no extraction: the
         # leading max(1, scan_owners) lanes are the owner pool (JAX:
         # parallel/pipeline.py:94-118)
@@ -161,36 +115,43 @@ class PipelineChannelizer(FrequencyDomainChannelizer):
                     if dedicated_owner and n > 1 else 0)
         self.worker_lanes = list(range(reserved, n))
         self.workers = [devs[lane] for lane in self.worker_lanes]
+        # each worker a group of shard_time consecutive worker lanes
+        # (JAX: parallel/pipeline.py:119-178)
+        tn = self.shard_time
+        n_groups = len(self.worker_lanes) // tn
+        if tn > 1 and n_groups < 1:
+            raise ValueError(
+                f"shard_time={tn} needs at least that many worker "
+                f"devices, have {len(self.worker_lanes)}"
+            )
+        self.groups = [self.worker_lanes[g * tn:(g + 1) * tn]
+                       for g in range(n_groups)]
+        cfg = self.config
+        if tn > 1:
+            if cfg.batch_blocks % tn:
+                raise ValueError(
+                    f"batch_blocks={cfg.batch_blocks} must be divisible "
+                    f"by shard_time={tn}"
+                )
+            self.b_local = cfg.batch_blocks // tn
+            if (cfg.batch_blocks % cfg.relinvovl == 0
+                    and self.b_local % cfg.relinvovl):
+                # the static phase-fold contract needs every run's first
+                # global block index == 0 (mod R)
+                raise ValueError(
+                    f"b_local={self.b_local} must be a multiple of "
+                    f"relinvovl={cfg.relinvovl} (phase-fold contract)"
+                )
         # bound on dispatched-but-unconsumed batches (device memory holds
         # one spec_ext + extraction set per in-flight batch)
-        self.window = int(window) or 2 * len(self.worker_lanes)
-        self._streams = [torch.cuda.Stream(device=d) if d.type == "cuda"
-                         else None for d in devs]
-
+        self.window = int(window) or 2 * len(self.groups)
         # multi-owner scans: segment groups round-robin over the leading
         # lanes, the burst chain with group 0; each segment's carry lives
         # on its group's lane
-        self._owner_groups = []  # [(lane, [segment indices])]
-        self._seg_lane = [0] * len(self.segments)
-        if scan_owners > 1 and len(self.segments) > 1:
-            n_own = min(scan_owners, len(self.segments), n)
-            groups = {}
-            for i in range(len(self.segments)):
-                groups.setdefault(i % n_own, []).append(i)
-            self._owner_groups = sorted(groups.items())
-            for lane, ids in self._owner_groups:
-                for i in ids:
-                    self._seg_lane[i] = lane
+        if scan_owners > 1:
+            self._set_owner_groups(
+                list(range(min(scan_owners, len(self.segments), n))))
 
-        # the module's tables live on devices[0]; a lane on another device
-        # reads a replica of them there, one per distinct device
-        self._replicas = {}
-        for d in devs:
-            if d not in self._replicas:
-                self._replicas[d] = self if d == self.device else (
-                    self._replica(d))
-
-        cfg = self.config
         # host rolling tail: the inplen + ovllen samples before the next
         # batch (ovllen of framing history for the recomputed leading
         # block plus that block's inplen samples: the last block)
@@ -202,19 +163,6 @@ class PipelineChannelizer(FrequencyDomainChannelizer):
         # pairs), prepended to the next batch
         self._prev_specf = np.zeros((cfg.blocksize, 2), np.float32)
 
-    def _replica(self, device):
-        """A view of this module with its buffers and sub-modules copied
-        to ``device`` (stage A and C's tables on a lane of another
-        device); host state and emitters are shared and unused."""
-        rep = copy.copy(self)
-        rep.__dict__["_buffers"] = {
-            k: None if v is None else v.to(device)
-            for k, v in self._buffers.items()}
-        rep.__dict__["_modules"] = {
-            k: copy.deepcopy(m).to(device) for k, m in self._modules.items()}
-        rep.__dict__["device"] = device
-        return rep
-
     def reset(self):
         super().reset()
         cfg = self.config
@@ -223,81 +171,44 @@ class PipelineChannelizer(FrequencyDomainChannelizer):
         self._ov_flag = False
         self._prev_specf = np.zeros((cfg.blocksize, 2), np.float32)
 
-    # -- lanes ------------------------------------------------------------------
-
-    def _on(self, lane):
-        """Run on the lane's stream (CUDA) or as it is (CPU)."""
-        s = self._streams[lane]
-        return contextlib.nullcontext() if s is None else torch.cuda.stream(s)
-
-    def _handoff(self, tree, src, dst):
-        """Tensors made on lane ``src``, readable on lane ``dst``: moved to
-        its device (the copy ordered on ``src``), ``dst`` waiting for what
-        ``src`` has enqueued, and each recorded on ``dst``'s stream."""
-        dev = self.devices[dst]
-        s_src, s_dst = self._streams[src], self._streams[dst]
-        with self._on(src):
-            moved = _tree_map(lambda t: t.to(dev), tree)
-        if s_dst is not None and s_dst is not s_src:
-            if s_src is not None:
-                s_dst.wait_stream(s_src)
-            for t in _leaves(moved):
-                if t.device == dev:
-                    t.record_stream(s_dst)
-        return moved
-
-    def _carry_lane(self, key: str) -> int:
-        return self._seg_lane[int(key[3:])] if key.startswith("seg") else 0
-
-    def _adopt_carry(self):
-        """The caller's stream may have written the carry (its init, a
-        restored checkpoint, the checkpoint sync): every lane waits for
-        it, and each carry leaf is recorded on its owner lane's stream."""
-        if self._carry is None:
-            with self._on(0):
-                self._carry = self._device_init()
-        for s in self._streams:
-            if s is not None:
-                s.wait_stream(torch.cuda.current_stream(s.device))
-        for key, val in self._carry.items():
-            s = self._streams[self._carry_lane(key)]
-            if s is not None:
-                for t in _leaves(val):
-                    if t.device == s.device:
-                        t.record_stream(s)
-
-    def _batch_done(self, lane):
-        """An event after every stage of the lane's batch: the lane waits
-        for the owner lanes (their flags and tables), then records."""
-        s = self._streams[lane]
-        if s is None:
-            return None
-        for owner in {0, *self._seg_lane}:
-            o = self._streams[owner]
-            if o is not None and o is not s:
-                s.wait_stream(o)
-        ev = torch.cuda.Event()
-        ev.record(s)
-        return ev
+    def _batch_done(self, lanes):
+        """An event a worker lane after every stage of its batch: the lane
+        waits for the owner lanes (their flags and tables), then records.
+        None on CPU lanes."""
+        events = []
+        for lane in lanes:
+            s = self._streams[lane]
+            if s is None:
+                continue
+            for owner in {0, *self._seg_lane}:
+                o = self._streams[owner]
+                if o is not None and o is not s:
+                    s.wait_stream(o)
+            ev = torch.cuda.Event()
+            ev.record(s)
+            events.append(ev)
+        return events or None
 
     # -- stages -------------------------------------------------------------------
 
-    def _pipe_front(self, lane, chunk, t0, ov_row=None):
-        """Stage A on ``lane`` from host samples: the tail (the framing
-        history and the reach-back block's samples) and ``chunk`` frame
-        B + 1 blocks, and the tail moves past ``chunk``; kernel F writes
-        the reach-back row (or the resume override ``ov_row``, [N, 2]
-        pairs) and the body into one spec_ext."""
+    def _frame_front(self, lane, tail, chunk, lo, n_blocks, ov_row):
+        """Framing and kernel F on ``lane``: the n_blocks + 1 blocks whose
+        samples start at ``lo`` on the line ``tail`` + ``chunk`` (the
+        first block, the reach-back block, is the one before the run),
+        both parts copied straight into one buffer; kernel F writes the
+        reach-back row (or the resume override ``ov_row``, [N, 2] pairs)
+        and the body into one spec_ext."""
         cfg = self.config
         dev = self.devices[lane]
-        tail = self._tail
-        self._advance_tail(chunk)
+        n = cfg.ovllen + (n_blocks + 1) * cfg.inplen
+        k = min(max(len(tail) - lo, 0), n)  # samples from the tail
+        c0 = lo + k - len(tail)
         with self._on(lane):
-            # both copied straight into one buffer: no host concatenation
-            x = torch.empty(len(tail) + len(chunk), dtype=torch.complex64,
-                            device=dev)
-            x[:len(tail)].copy_(torch.from_numpy(tail))
-            x[len(tail):].copy_(torch.from_numpy(chunk))
+            x = torch.empty(n, dtype=torch.complex64, device=dev)
+            if k:
+                x[:k].copy_(torch.from_numpy(tail[lo:lo + k]))
+            if n > k:
+                x[k:].copy_(torch.from_numpy(chunk[c0:c0 + n - k]))
             blocks, _ = frame_blocks(x[cfg.ovllen:], x[:cfg.ovllen],
                                      cfg.blocksize)
             spec_ext = torch.empty(blocks.shape, dtype=torch.complex64,
@@ -310,7 +221,33 @@ class PipelineChannelizer(FrequencyDomainChannelizer):
                     _pairs_to_complex(ov_row)).to(dev)
             forward_spectrum(blocks[1:], use_mxu=cfg.use_mxu_fft,
                              out=spec_ext[1:])
+        return spec_ext
+
+    def _pipe_front(self, lane, chunk, t0, ov_row=None):
+        """Stage A on ``lane`` from host samples: the tail and ``chunk``
+        frame B + 1 blocks (:meth:`_frame_front`), and the tail moves
+        past ``chunk``."""
+        tail = self._tail
+        self._advance_tail(chunk)
+        spec_ext = self._frame_front(lane, tail, chunk, 0,
+                                     self.config.batch_blocks, ov_row)
         return self._pipe_static(lane, spec_ext, t0)
+
+    def _pipe_front_group(self, lanes, chunk, t0, ov_row=None):
+        """Stage A over a group's lanes: lane t frames blocks [t*b - 1,
+        (t+1)*b) of the batch from its own run of the sample line (JAX's
+        ``_shard_inputs``) and extracts at its global block offset; only
+        the first run takes the resume override. One stage A tuple a
+        lane."""
+        cfg = self.config
+        tail = self._tail
+        self._advance_tail(chunk)
+        bl = self.b_local
+        return [self._pipe_static(
+            lane,
+            self._frame_front(lane, tail, chunk, t * bl * cfg.inplen, bl,
+                              ov_row if t == 0 else None),
+            t0 + t * bl) for t, lane in enumerate(lanes)]
 
     def _pipe_front_spec(self, lane, spec_ext_host, t0):
         """Stage A in vector mode: the host's [B + 1, N] spectra, row 0
@@ -328,102 +265,19 @@ class PipelineChannelizer(FrequencyDomainChannelizer):
             dbg = torch.view_as_real(spec) if self.config.debug else None
         return out, pa_powers, pa_ext, seg_powers, seg_packed, spec_ext, dbg
 
-    def _pipe_scan(self, lane, pa_powers, seg_packed):
-        """Stage B on the owner lane 0, in batch order: only the small
-        powers and candidate packs travel there."""
-        pa_o, segk_o = self._handoff((pa_powers, list(seg_packed)), lane, 0)
-        with self._on(0):
-            carry = dict(self._carry)
-            scans = self._scan_detections(carry, pa_o, segk_o)
-            self._carry = carry
-        return scans
-
-    def _group_scan(self, lane, ids, states, packs, powact, foreign):
-        """One owner lane's stage B: its segment group's cut
-        reconciliation against the ``foreign`` views ({local index:
-        (lower view | None, upper view | None)}), the group's scans in one
-        kernel C launch (with the burst chain on group 0: ``powact`` =
-        (pa_powers, pa_state)) and the plans (JAX:
-        parallel/pipeline.py:451-507)."""
-        rep = self._replicas[self.devices[lane]]
-        sds = [rep.segments[i] for i in ids]
-        states, packs, killed = list(states), list(packs), {}
-        for lk, (lo_v, hi_v) in foreign.items():
-            kill_from = [] if lo_v is None else [lo_v]
-            suppress_from = kill_from + ([] if hi_v is None else [hi_v])
-            states[lk], packs[lk], killed[lk] = sds[lk].reconcile_split(
-                states[lk], packs[lk], kill_from, suppress_from)
-        pa_res = None
-        if powact is not None:
-            seg_scans, pa_res = scan_slots_multi(
-                sds, states, packs, powact=(rep.power_bank, *powact))
-        else:
-            seg_scans = scan_slots_multi(sds, states, packs)
-        outs = []
-        for lk, (sd, (st, flags)) in enumerate(zip(sds, seg_scans)):
-            so = sd.plan_outputs(st, flags)
-            if lk in killed:
-                so["killed"] = killed[lk]
-            outs.append((st, so))
-        return outs, pa_res
-
-    def _pipe_scan_groups(self, lane, pa_powers, seg_packed):
-        """Multi-owner stage B: each owner lane advances its segment
-        group's chain. The split parts' neighbour views are taken from
-        the previous batch's states before any group runs (the lagged
-        contract of ``SegmentDetector.reconcile_split``), each on the lane
-        that owns the part. A group's packs reach its lane as views of
-        kernel B's flat buffer; kernel C reads them in place where they
-        sit at the group's own pack offsets (a single segment), else as
-        one copy a group (``lifecycle._flat_packs``)."""
-        views = {}
-        for i in self._split_neighbors:
-            with self._on(self._seg_lane[i]):
-                views[i] = SegmentDetector.split_foreign_view(
-                    self._carry[f"seg{i}"])
-        results = [None] * len(self.segments)
-        pa_res = None
-        carry = dict(self._carry)
-        for k, (olane, ids) in enumerate(self._owner_groups):
-            # a segment's carry lives on its owner lane (a restored carry
-            # may sit on devices[0]: handing off to itself moves it)
-            states = [self._handoff(carry[f"seg{i}"], olane, olane)
-                      for i in ids]
-            packs = self._handoff([seg_packed[i] for i in ids], lane, olane)
-            foreign = {}
-            for lk, i in enumerate(ids):
-                if i in self._split_neighbors:
-                    foreign[lk] = tuple(
-                        None if j is None else self._handoff(
-                            views[j], self._seg_lane[j], olane)
-                        for j in self._split_neighbors[i])
-            powact = None
-            if k == 0 and self.power_bank:
-                powact = (self._handoff(pa_powers, lane, olane),
-                          carry["powact"])
-            with self._on(olane):
-                outs, pa_k = self._group_scan(olane, ids, states, packs,
-                                              powact, foreign)
-            if k == 0:
-                pa_res = pa_k
-            for i, (st, so) in zip(ids, outs):
-                carry[f"seg{i}"] = st
-                results[i] = (st, so)
-        scans = {"segs": results}
-        if self.power_bank:
-            carry["powact"], scans["powact"] = pa_res
-        self._carry = carry
-        return scans
-
     def _pipe_scan_extract(self, lane, pa_powers, seg_packed, spec_ext):
         """Stages B and C for one batch: the owner lanes' scans, then the
         slot extraction back on the batch's worker lane under the owners'
         tables and plans. Returns (scans, extracts, the batch's done
-        event or None)."""
-        if self._owner_groups:
-            scans = self._pipe_scan_groups(lane, pa_powers, seg_packed)
-        else:
-            scans = self._pipe_scan(lane, pa_powers, seg_packed)
+        events or None)."""
+        self._carry, scans = self._scan(self._carry, lane, pa_powers,
+                                        seg_packed)
+        return scans, self._pipe_slots(lane, spec_ext, scans), (
+            self._batch_done([lane]))
+
+    def _pipe_slots(self, lane, spec_ext, scans):
+        """Stage C on ``lane``: every segment's planned slots over
+        ``spec_ext``."""
         states, plans = [], []
         for i, (st, so) in enumerate(scans["segs"]):
             plan = {k: so[k] for k in ("slot_ids", "slot_ids_narrow")
@@ -433,17 +287,61 @@ class PipelineChannelizer(FrequencyDomainChannelizer):
             plans.append(plan)
         rep = self._replicas[self.devices[lane]]
         with self._on(lane):
-            extracts = rep._extract_slots_all(spec_ext, states, plans)
-        return scans, extracts, self._batch_done(lane)
+            return rep._extract_slots_all(spec_ext, states, plans)
+
+    def _pipe_group(self, lanes, fronts, t0):
+        """Stages B and C for a group's batch (``fronts``: each lane's
+        stage A): the runs' powers and packs joined on the scan lane in
+        kernel C's layout, the scans, each lane's slot extraction. Returns
+        the in-flight entry; its per-lane row families are merged on the
+        host when the batch is consumed."""
+        parts = list(zip(lanes, fronts))
+        pa_powers = (self._gather_rows([(ln, f[1]) for ln, f in parts], 0)
+                     if self.power_bank else None)
+        seg_packed = (self._gather_packs([(ln, f[4]) for ln, f in parts], 0)
+                      if len(self.segments) else [])
+        self._carry, scans = self._scan(self._carry, 0, pa_powers,
+                                        seg_packed)
+        extracts = [self._pipe_slots(ln, f[5], scans) for ln, f in parts]
+        return ([f[0] for f in fronts], [f[2] for f in fronts],
+                [f[3] for f in fronts], [f[6] for f in fronts], scans,
+                extracts, t0, self._batch_done(lanes))
+
+    def _join_group(self, parts):
+        """A group batch's per-lane stage outputs joined on the host into
+        the plain step's layout: streams and powers concatenated over the
+        runs, row families with the runs' duplicated reach-back rows
+        dropped (JAX: parallel/pipeline.py:437-446,700-720)."""
+        outs, pa_exts, seg_powers, dbgs, scans, extracts, t0_b, done = parts
+        out = {}
+        if self.throughput:
+            out["throughput_buckets"] = [
+                np.concatenate([_host(o["throughput_buckets"][k])
+                                for o in outs], axis=1)
+                for k in range(len(self.throughput.buckets))]
+        pa_ext = None
+        if self.power_bank:
+            pa_ext = {w: merge_rows([_host(p[w]) for p in pa_exts])
+                      for w in pa_exts[0]}
+        seg_p = [np.concatenate([_host(p[i]) for p in seg_powers])
+                 for i in range(len(self.segments))]
+        dbg = (np.concatenate([_host(d) for d in dbgs])
+               if self.config.debug else None)
+        ext = [{k: merge_rows([_host(e[i][k]) for e in extracts])
+                for k in extracts[0][i]} for i in range(len(self.segments))]
+        return out, pa_ext, seg_p, dbg, scans, ext, t0_b, done
 
     def _consume_pipeline_batch(self, batch_parts, result, dbg):
         """Join one in-flight batch's stage outputs into the plain step's
-        ``out`` and fold it into the result, once its done event has
+        ``out`` and fold it into the result, once its done events have
         fired (deferred, so the host never blocks the pipeline)."""
+        done = batch_parts[-1]
+        for ev in done or ():
+            ev.synchronize()
+        if isinstance(batch_parts[0], list):
+            batch_parts = self._join_group(batch_parts)
         (out_static, pa_ext, seg_powers, dbgb, scans, extracts, t0_b,
-         done) = batch_parts
-        if done is not None:
-            done.synchronize()
+         _) = batch_parts
         out = dict(out_static)
         self._assemble_detections(out, scans, extracts, pa_ext, seg_powers)
         if self.config.debug:
@@ -465,8 +363,41 @@ class PipelineChannelizer(FrequencyDomainChannelizer):
 
     # -- pipelined streaming ------------------------------------------------------
 
+    def _dispatch(self, b, front, front_group):
+        """Stages A, B and C of the call's batch number ``b`` on its
+        worker lane or group (``front(b, lane, t0)`` and
+        ``front_group(b, lanes, t0)`` its stage A); the in-flight
+        entry."""
+        t0 = self._t0
+        if self.shard_time > 1:
+            lanes = self.groups[b % len(self.groups)]
+            return self._pipe_group(lanes, front_group(b, lanes, t0), t0)
+        lane = self.worker_lanes[b % len(self.worker_lanes)]
+        (out_static, pa_powers, pa_ext, seg_powers, seg_packed, spec_ext,
+         dbgb) = front(b, lane, t0)
+        scans, extracts, done = self._pipe_scan_extract(
+            lane, pa_powers, seg_packed, spec_ext)
+        return (out_static, pa_ext, seg_powers, dbgb, scans, extracts, t0,
+                done)
+
+    def _run_batches(self, n_batches, front, front_group):
+        """Dispatch ``n_batches`` batches, keeping up to ``window`` in
+        flight, and consume them in order."""
+        result = self._new_result()
+        dbg = []
+        inflight = []
+        for b in range(n_batches):
+            inflight.append(self._dispatch(b, front, front_group))
+            self._t0 += self.config.batch_blocks
+            if len(inflight) >= self.window:
+                self._consume_pipeline_batch(inflight.pop(0), result, dbg)
+        while inflight:
+            self._consume_pipeline_batch(inflight.pop(0), result, dbg)
+        if dbg:
+            result.debug_spectrum = np.concatenate(dbg)
+        return result
+
     def process(self, samples: np.ndarray):
-        cfg = self.config
         if self._spectra_mode:
             # one entry point per stream: the host framing state (_tail
             # vs _prev_specf) is per mode, and a mixed-mode checkpoint
@@ -484,33 +415,22 @@ class PipelineChannelizer(FrequencyDomainChannelizer):
         n_batches = len(x) // bs
         self._pending = x[n_batches * bs:]
 
-        result = self._new_result()
-        dbg = []
-        inflight = []
-        for b in range(n_batches):
-            chunk = x[b * bs:(b + 1) * bs]
-            lane = self.worker_lanes[b % len(self.worker_lanes)]
-            (out_static, pa_powers, pa_ext, seg_powers, seg_packed,
-             spec_ext, dbgb) = self._pipe_front(
-                lane, chunk, self._t0, self._take_override())
-            scans, extracts, done = self._pipe_scan_extract(
-                lane, pa_powers, seg_packed, spec_ext)
-            inflight.append((out_static, pa_ext, seg_powers, dbgb, scans,
-                             extracts, self._t0, done))
-            self._t0 += cfg.batch_blocks
-            if len(inflight) >= self.window:
-                self._consume_pipeline_batch(inflight.pop(0), result, dbg)
-        while inflight:
-            self._consume_pipeline_batch(inflight.pop(0), result, dbg)
-        if dbg:
-            result.debug_spectrum = np.concatenate(dbg)
-        return result
+        def chunk(b):
+            return x[b * bs:(b + 1) * bs]
+
+        return self._run_batches(
+            n_batches,
+            lambda b, lane, t0: self._pipe_front(
+                lane, chunk(b), t0, self._take_override()),
+            lambda b, lanes, t0: self._pipe_front_group(
+                lanes, chunk(b), t0, self._take_override()))
 
     def process_spectra(self, spectra: np.ndarray):
         """Pipelined pre-FFT'd vector mode: the batch farm of ``process``
         minus framing and FFT. The host owns the input spectra, so each
         batch ships with the previous batch's last row prepended: the
-        reach-back row is exact by construction."""
+        reach-back row is exact by construction (a group's lane t gets
+        rows [t*b, (t+1)*b] of it, JAX's ``_shard_spec_inputs``)."""
         cfg = self.config
         if self._samples_mode:
             raise RuntimeError(
@@ -530,30 +450,22 @@ class PipelineChannelizer(FrequencyDomainChannelizer):
         n_batches = spectra.shape[0] // bb
         self._pending_spec = spectra[n_batches * bb:]
 
-        result = self._new_result()
-        dbg = []
-        inflight = []
-        for b in range(n_batches):
-            lane = self.worker_lanes[b % len(self.worker_lanes)]
-            spec_ext = np.concatenate([
-                _pairs_to_complex(self._prev_specf)[None],
-                spectra[b * bb:(b + 1) * bb]])
-            self._prev_specf = _complex_to_pairs(spec_ext[-1])
-            (out_static, pa_powers, pa_ext, seg_powers, seg_packed,
-             spec_ext_d, dbgb) = self._pipe_front_spec(lane, spec_ext,
-                                                       self._t0)
-            scans, extracts, done = self._pipe_scan_extract(
-                lane, pa_powers, seg_packed, spec_ext_d)
-            inflight.append((out_static, pa_ext, seg_powers, dbgb, scans,
-                             extracts, self._t0, done))
-            self._t0 += bb
-            if len(inflight) >= self.window:
-                self._consume_pipeline_batch(inflight.pop(0), result, dbg)
-        while inflight:
-            self._consume_pipeline_batch(inflight.pop(0), result, dbg)
-        if dbg:
-            result.debug_spectrum = np.concatenate(dbg)
-        return result
+        def spec_ext(b):
+            ext = np.concatenate([_pairs_to_complex(self._prev_specf)[None],
+                                  spectra[b * bb:(b + 1) * bb]])
+            self._prev_specf = _complex_to_pairs(ext[-1])
+            return ext
+
+        def group(b, lanes, t0):
+            ext, bl = spec_ext(b), self.b_local
+            return [self._pipe_front_spec(lane, ext[t * bl:(t + 1) * bl + 1],
+                                          t0 + t * bl)
+                    for t, lane in enumerate(lanes)]
+
+        return self._run_batches(
+            n_batches,
+            lambda b, lane, t0: self._pipe_front_spec(lane, spec_ext(b), t0),
+            group)
 
     # -- checkpoint integration -----------------------------------------------------
 

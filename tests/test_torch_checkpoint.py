@@ -10,7 +10,8 @@ event samples (as one stream) within rtol 2e-4 / atol 2e-5 of the max
 (ROADMAP's tolerances: the two packages' FFTs round differently). The
 port's own resume is bit-exact. The cases: the small flagship (burst
 bank + one segment), a segment split into 4 parts with a carrier on a
-cut, and the vcm runner. The port keeps its default emitters ("auto":
+cut, and the vcm runner; the first two also between plain and 2x2
+sharded channelizers of both packages. The port keeps its default emitters ("auto":
 the native ones), ``fdc_tpu`` its Python ones, so each crossing also
 changes emitter backend.
 """
@@ -159,6 +160,48 @@ def test_port_saves_jax_resumes(stream):
     jax_ckpt.load_checkpoint(jf, str(stream["port_file"]))
     assert_stream_matches(
         [stream["head_t"], jf.process(x[cut:]), jf.flush()], stream["ref"])
+
+
+@pytest.fixture(scope="module")
+def sharded(stream):
+    """A 2x2 sharded channelizer of each package (CPU ranks; fdc_tpu's
+    on the forced CPU mesh) on the stream's config: the carry is the
+    plain carry, so files cross-restore between plain and sharded
+    channelizers of both packages (tests/test_checkpoint.py:110-150)."""
+    from fdc_tpu.parallel import ShardedChannelizer as JaxSharded
+    from fdc_tpu.parallel import make_mesh as jax_make_mesh
+    from fdc_tpu_torch.parallel import ShardedChannelizer, make_mesh
+
+    jsh = JaxSharded(stream["jf"].config,
+                     mesh=jax_make_mesh(n_time=2, n_chan=2))
+    tsh = ShardedChannelizer(stream["tf"].config,
+                             mesh=make_mesh(2, 2, ["cpu"] * 4))
+    assert tsh.config == stream["tf"].config  # no slot rounding here
+    return jsh, tsh
+
+
+@pytest.mark.parametrize("save_kind,load_kind", [
+    ("sharded", "plain"), ("plain", "sharded"),
+    ("jax-sharded", "sharded"), ("sharded", "jax-sharded"),
+])
+def test_sharded_checkpoints_cross_restore(stream, sharded, save_kind,
+                                           load_kind):
+    """Cut mid-batch in a burst: the head through one channelizer, saved,
+    the rest resumed by another; the uninterrupted run's events and
+    streams."""
+    jsh, tsh = sharded
+    models = {"sharded": (tsh, ckpt), "jax-sharded": (jsh, jax_ckpt),
+              "plain": (stream["tf"], ckpt)}
+    (save, save_mod), (load, load_mod) = models[save_kind], models[load_kind]
+    x, cut = stream["x"], stream["cut"]
+    path = str(stream["tmp"] / f"{save_kind}-{load_kind}.ckpt")
+    restart(save)
+    head = save.process(x[:cut])
+    save_mod.save_checkpoint(save, path)
+    restart(load)
+    load_mod.load_checkpoint(load, path)
+    assert_stream_matches([head, load.process(x[cut:]), load.flush()],
+                          stream["ref"])
 
 
 def test_file_format_is_fdc_tpus(stream):

@@ -7,11 +7,11 @@ the events JSONL exact apart from the timestamped ID prefix, the event
 payload files by name (without the prefix) and the throughput streams
 within rtol 2e-4 / atol 2e-5 of the max (the two packages' FFTs round
 differently). The checkpoint split cuts inside a burst, mid-batch, and
-crosses packages both ways. The MPMD flags (``--pipeline``,
+crosses packages both ways. The multi-device flags (``--pipeline``,
 ``--dedicated-owner``, ``--pipeline-scan-owners``, ``--cpu-devices``,
-``--hostpipe-*``) run, each against ``fdc_tpu``'s ``main()`` on the same
-argv; the SPMD ones (``--pipeline-shard-time``, ``--time-shards``,
-``--chan-shards``) are refused.
+``--hostpipe-*``, and the SPMD ``--time-shards``, ``--chan-shards`` and
+``--pipeline-shard-time`` on an 8-device CPU mesh) run, each against
+``fdc_tpu``'s ``main()`` on the same argv.
 """
 
 import json
@@ -325,19 +325,51 @@ def test_multi_device_flags_run(files, jax_run, flag):
 
 
 @pytest.mark.parametrize("flag", [
-    ("--pipeline-shard-time", "2"), ("--time-shards", "2"),
-    ("--chan-shards", "2"),
+    ("--time-shards", "4", "--chan-shards", "2"),
+    ("--pipeline", "4", "--pipeline-shard-time", "2"),
 ], ids=lambda f: " ".join(f))
-def test_multi_device_flags_refused(files, flag):
-    cmds = ["run", "serve"]
-    for cmd in cmds:
-        argv = [cmd, str(files / "cfg.json")]
-        argv += [str(files / "cap.c64")] if cmd == "run" else []
-        with pytest.raises(SystemExit) as exc:
-            main([*argv, "--cpu", *flag])
-        msg = str(exc.value.code)
-        assert "does not port yet" in msg and flag[0] in msg
-        assert "fdc_tpu/parallel/" in msg
+def test_spmd_flags_run_as_fdc_tpus(files, flag):
+    """The SPMD flags on an 8-device CPU mesh: ``run`` gives the outputs
+    of fdc_tpu's ``main()`` on the same argv (tests/test_cli.py:226-235,
+    the composed pipeline of :382-435)."""
+    extra = ("--cpu-devices", "8", *flag)
+    name = "_".join(f.strip("-") for f in flag)
+    ref = outputs(jax("run", files, f"jax_{name}", extra=extra))
+    assert_same_outputs(outputs(port("run", files, f"port_{name}",
+                                     extra=extra)), ref)
+
+
+@pytest.mark.parametrize("flag", [
+    ("--time-shards", "2"), ("--chan-shards", "2"),
+], ids=lambda f: " ".join(f))
+def test_one_sharded_axis_runs(files, jax_run, flag):
+    """One sharded axis alone (the other of size 1): fdc_tpu's plain
+    run's outputs."""
+    name = "_".join(f.strip("-") for f in flag)
+    assert_same_outputs(outputs(port(
+        "run", files, f"port1_{name}", extra=("--cpu-devices", "4", *flag))),
+        jax_run)
+
+
+@pytest.mark.parametrize("flag", [
+    ("--time-shards", "4", "--chan-shards", "2"),
+    ("--pipeline", "4", "--pipeline-shard-time", "2"),
+], ids=lambda f: " ".join(f))
+def test_serve_spmd_matches_fdc_tpu_run(files, jax_run, flag):
+    """serve over the sharded step and the composed pipeline on 8 CPU
+    devices: fdc_tpu's ``run`` over the file."""
+    name = "_".join(f.strip("-") for f in flag)
+    out = serve(files, f"port_serve_{name}", ("--cpu-devices", "8", *flag))
+    assert_same_outputs(outputs(out), jax_run)
+
+
+def test_too_few_devices_raise_the_mesh_error(files):
+    """A mesh larger than the devices: the mesh's error, as fdc_tpu's
+    make_mesh raises it (a two-card mesh on a one-card machine)."""
+    argv = ["run", str(files / "cfg.json"), str(files / "cap.c64"),
+            "--cpu-devices", "2", "--time-shards", "2", "--chan-shards", "2"]
+    with pytest.raises(ValueError, match="mesh 2x2 needs 4 devices, have 2"):
+        main(argv)
 
 
 @pytest.mark.parametrize("extra,msg", [

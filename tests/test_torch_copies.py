@@ -165,9 +165,11 @@ def test_port_imports_neither_jax_nor_fdc_tpu():
     files = sorted((ROOT / "fdc_tpu_torch").rglob("*.py"))
     assert ROOT / "fdc_tpu_torch" / "__main__.py" in files
     assert {ROOT / "fdc_tpu_torch" / "parallel" / f for f in (
-        "__init__.py", "pipeline.py", "hostpipe.py")} <= set(files)
+        "__init__.py", "pipeline.py", "hostpipe.py", "lanes.py", "mesh.py",
+        "sharded.py", "multihost.py")} <= set(files)
     files.append(ROOT / "chip_smoke.py")
     files += sorted((ROOT / "tools_torch").glob("*.py"))
+    assert ROOT / "tools_torch" / "multihost_worker.py" in files
     bad = [(str(f.relative_to(ROOT)), m)
            for f in files for m in imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "fdc_tpu")]

@@ -4,7 +4,8 @@
 lanes (the kernels' plain versions), ``fdc_tpu``'s on the forced
 8-device CPU mesh, over the small config and signal of
 ``tests/test_parallel.py``; both are also held against the plain
-channelizers. Tolerances (ROADMAP's): event metadata exact, event
+channelizers. ``shard_time`` groups run against ``fdc_tpu``'s composed pipeline.
+Tolerances (ROADMAP's): event metadata exact, event
 samples (as one stream) and throughput streams within rtol 2e-4 / atol
 2e-5 of the max, segment powers within 1e-5 of the max. The pipeline's
 reach-back row is a [1, N] transform where the plain step carries row B
@@ -367,13 +368,112 @@ def test_one_entry_point_per_stream():
         pipe.process(np.zeros(pcfg.inplen, np.complex64))
 
 
-def test_shard_time_refused():
-    """The pipeline x SPMD composition waits for the sharded step."""
+def test_shard_time_must_be_positive():
     _, pcfg = configs()
-    with pytest.raises(NotImplementedError, match="sharded.py"):
-        PipelineChannelizer(pcfg, devices=cpu(4), shard_time=2)
-    with pytest.raises(ValueError, match="shard_time"):
+    with pytest.raises(ValueError, match="shard_time must be >= 1"):
         PipelineChannelizer(pcfg, devices=cpu(4), shard_time=0)
+
+
+@pytest.mark.parametrize("kw,msg", [
+    (dict(devices=cpu(3), shard_time=4), "needs at least that many"),
+    (dict(devices=cpu(4), shard_time=3), "must be divisible by shard_time"),
+    (dict(devices=cpu(4), shard_time=4), "phase-fold contract"),
+], ids=["devices", "batch", "fold"])
+def test_shard_time_contracts_are_fdc_tpus(kw, msg):
+    """fdc_tpu's refusals: a group larger than the workers, a batch its
+    runs do not divide, a run that breaks the phase fold (b = 2, R = 4
+    where B % R == 0)."""
+    jcfg, pcfg = configs()
+    jkw = dict(kw, devices=jax.devices()[:len(kw["devices"])])
+    with pytest.raises(ValueError) as ref:
+        JaxPipe(jcfg, **jkw)
+    with pytest.raises(ValueError) as got:
+        PipelineChannelizer(pcfg, **kw)
+    assert msg in str(got.value) and str(got.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("shard_time,n,dedicated", [
+    (2, 4, False), (4, 4, False), (2, 5, True),
+], ids=["2 groups of 2", "1 group of 4", "dedicated owner, 2 groups"])
+def test_pipeline_shard_time_matches(shard_time, n, dedicated):
+    """Pipeline x SPMD: each worker a group of ``shard_time`` lanes, each
+    framing its own run with one reach-back block, the runs' reach-back
+    rows dropped on the host; against fdc_tpu's composed pipeline and
+    the plain channelizer (tests/test_pipeline.py:255-289)."""
+    jcfg, pcfg = configs(batch_blocks=4 * shard_time)
+    x = signal(pcfg, 6, 7)
+    pipe = PipelineChannelizer(pcfg, devices=cpu(n), shard_time=shard_time,
+                               dedicated_owner=dedicated)
+    ref = JaxPipe(jcfg, devices=jax.devices()[:n], shard_time=shard_time,
+                  dedicated_owner=dedicated)
+    assert len(pipe.groups) == len(ref.group_meshes) >= 1
+    assert all(len(g) == shard_time for g in pipe.groups)
+    chunk = 2 * pcfg.batch_blocks * pcfg.inplen
+    got = stream(pipe, x, chunk)
+    assert_streams_match(got, stream(ref, x, chunk))
+    assert_streams_match(got, stream(
+        FrequencyDomainChannelizer(pcfg, device="cpu"), x, chunk))
+
+
+@pytest.mark.parametrize("shard_time", [2, 4])
+def test_pipeline_shard_time_process_spectra(shard_time):
+    """Vector mode through the groups: lane t gets rows [t*b, (t+1)*b] of
+    the host's extended batch (exact reach-back rows); ragged row
+    chunks."""
+    jcfg, pcfg = configs(batch_blocks=4 * shard_time)
+    x = signal(pcfg, 4, 13)
+    spec = FrequencyDomainChannelizer(
+        pcfg.replace(debug=True), device="cpu").process(x).debug_spectrum
+
+    def feed(model, cuts):
+        results = [model.process_spectra(spec[lo:hi]) for lo, hi in cuts]
+        results.append(model.flush())
+        return ([e for r in results for e in r.events],
+                [np.concatenate([r.throughput[i] for r in results])
+                 for i in range(len(results[0].throughput))])
+
+    n = len(spec)
+    ragged = ((0, 5), (5, n // 2 + 3), (n // 2 + 3, n - 2))
+    ev, tp = feed(PipelineChannelizer(pcfg, devices=cpu(4),
+                                      shard_time=shard_time), ragged)
+    for ref, cuts in ((JaxPipe(jcfg, devices=jax.devices()[:4],
+                               shard_time=shard_time), ((0, n - 2),)),
+                      (FrequencyDomainChannelizer(pcfg, device="cpu"),
+                       ragged)):
+        ev_ref, tp_ref = feed(ref, cuts)
+        assert ev_ref
+        assert_events_match(ev, ev_ref)
+        for a, b in zip(tp, tp_ref):
+            assert_close_to_max(a, b, RTOL, ATOL, "throughput")
+
+
+@pytest.mark.parametrize("load_kind", ["plain", "jax-plain", "pipe"])
+def test_pipeline_shard_time_multi_owner_checkpoint(load_kind, tmp_path):
+    """Composition with two scan owners, saved mid-stream (the segment
+    carries on their owner lanes) and resumed by a plain channelizer of
+    either package or by another composed pipeline: the uninterrupted
+    run's events (tests/test_pipeline.py:350-380)."""
+    jcfg, pcfg = configs(
+        activity_detection_segments=[(-0.47, -0.3), (0.03, 0.2)])
+    x = signal(pcfg, 6, 23, carriers=((0.1, 0.4, 0.8),))
+    cut = len(x) // 2 + 3 * pcfg.inplen
+
+    def pipe():
+        return PipelineChannelizer(pcfg, devices=cpu(8), shard_time=2,
+                                   scan_owners=2)
+
+    a = pipe()
+    assert [lane for lane, _ in a._owner_groups] == [0, 1]
+    load, load_ckpt = {
+        "plain": (FrequencyDomainChannelizer(pcfg, device="cpu"),
+                  ckpt.load_checkpoint),
+        "jax-plain": (JaxFDC(jcfg), jax_ckpt.load_checkpoint),
+        "pipe": (pipe(), ckpt.load_checkpoint),
+    }[load_kind]
+    got = split_run(a, load, x, cut, ckpt.save_checkpoint, load_ckpt,
+                    str(tmp_path / "comp.ckpt"))
+    assert_split_matches(got, FrequencyDomainChannelizer(pcfg, device="cpu"),
+                         x)
 
 
 def test_default_devices_are_the_cards():

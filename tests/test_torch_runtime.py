@@ -255,3 +255,58 @@ def test_stream_driver_missing_file_raises(tmp_path):
     with pytest.raises(IOError):
         in_thread(lambda: drv.run_file(str(tmp_path / "absent.c64"),
                                        timeout=0.5))
+
+
+def test_stream_driver_with_sharded_channelizer(tmp_path):
+    """The config-5 streaming shape of tests/test_runtime.py:254-289: a
+    file through the native ring into the sharded step on a 4x2 mesh of
+    CPU ranks. Equal to the sharded channelizer's own process + flush
+    (bit for bit: the same batches and step) and, within the stream
+    tolerance, to the plain channelizer's."""
+    from fdc_tpu_torch import ChannelizerConfig
+    from fdc_tpu_torch.parallel import ShardedChannelizer, make_mesh
+
+    from test_torch_slice import ATOL, RTOL, assert_events_match
+    from test_torch_slice import assert_close_to_max
+
+    cfg = ChannelizerConfig(
+        blocksize=256, relinvovl=4, throughput_channels=[(-0.2, 0.05)],
+        activity_detection_segments=[(0.1, 0.4)], act_det_threshold=8.0,
+        minchandist=0.02, freqmode="basebandfs", batch_blocks=8,
+    )
+
+    def sharded():
+        return ShardedChannelizer(cfg, mesh=make_mesh(4, 2, ["cpu"] * 8))
+
+    n = 4 * cfg.batch_blocks * cfg.inplen
+    t = np.arange(n)
+    rng = np.random.default_rng(8)
+    x = (np.exp(2j * np.pi * -0.2 * t)
+         + 0.02 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+         ).astype(np.complex64)
+    m = np.zeros(n)
+    m[10 * cfg.inplen: 20 * cfg.inplen] = 1.0
+    x += (2.0 * m * np.exp(2j * np.pi * 0.25 * t)).astype(np.complex64)
+    path = tmp_path / "pod.c64"
+    x.tofile(path)
+
+    drv = StreamDriver(sharded(), ring_batches=2)
+    got = in_thread(lambda: drv.run_file(str(path), timeout=1.0))
+    assert drv.stats.batches == 4
+    events = [e for r in got for e in r.events]
+    assert any(e.finalized for e in events)
+    y = np.concatenate([r.throughput[0] for r in got])
+    assert np.abs(y[200:]).mean() == pytest.approx(1.0, abs=0.07)
+    sh = sharded()
+    ref = [sh.process(x), sh.flush()]
+    assert [meta(e) for e in events] == [meta(e) for r in ref
+                                         for e in r.events]
+    for a, b in zip(events, [e for r in ref for e in r.events]):
+        np.testing.assert_array_equal(a.data, b.data)
+    np.testing.assert_array_equal(
+        y, np.concatenate([r.throughput[0] for r in ref]))
+    plain = FrequencyDomainChannelizer(cfg, device="cpu")
+    pres = [plain.process(x), plain.flush()]
+    assert_events_match(events, [e for r in pres for e in r.events])
+    assert_close_to_max(y, np.concatenate([r.throughput[0] for r in pres]),
+                        RTOL, ATOL, "throughput")
