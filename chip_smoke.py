@@ -4,7 +4,9 @@
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc`` (the kernels are built from ``fdc_tpu_torch/csrc``
 on first use), imports neither JAX nor fdc_tpu, and exits non-zero on
-any failure. It drives nine paths at full width, B=512: the flagship
+any failure. It drives nine paths at full width, B=512 (and in phase
+10 the flagship at blocksize 32768 and five of them with
+``use_mxu_fft=False``): the flagship
 (``_flagship``), the upstream example (``reference_example``: fused
 throughput + burst buckets, one detection segment), BASELINE config 3
 (``powact32``: 32 burst channels, the standalone burst chain), config 2
@@ -105,9 +107,26 @@ with its wall seconds:
    (``sharded_prediction``); every kernel call of each mesh run's second
    step, and of the shard_time pipeline's first two batches, held
    against its plain version (rank-local shapes).
+10. the FFT route, blocksizes above 16384 and the utilities
+   (``large_n_phase``): kernel F's two-pass form
+   (``csrc/forward_fft_2pass.cu``) against its plain version at
+   [512, 32768], [256, 65536], [128, 131072] and into rows 1..B of an
+   extended spectrum, timed beside the plain version, the ``torch.fft``
+   route and its bound; the flagship at blocksize 32768, B=512, through
+   process() + flush() (F's two-pass form, A, B, C) and against the CPU
+   plain path; the flagship, the example, powact32, hunter4seg and
+   vcm4seg with ``use_mxu_fft=False`` (every subband transform on
+   ``torch.fft``: no A, E or F launched, B and C or D once a step), each
+   with its events equal to phase 3's, against the CPU plain path and
+   with its step time; vcm4seg's step with its slots on the product
+   route and on the FFT route, in turns; ``utils.profiling``
+   (``time_scanned_stats``, ``measure_samples_per_sec``) on the flagship
+   beside its step time; ``utils.resample`` on the card against the CPU.
 
 In the kernel summary JSON, ``ms``, ``plain_ms``, ``bound_ms`` and
-``library_ms`` are sums over the kernel's phase-2 cases.
+``library_ms`` are sums over the kernel's phase-2 cases (for
+``forward_fft_2pass``, phase 10's), and ``launches`` are phase 3's (for
+``forward_fft_2pass``, the 32768-point flagship's in phase 10).
 
 The line before the last is the kernel summary JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -585,6 +604,7 @@ def wrappers():
             ("extract_static", extract_fused, "extract_static"),
             ("extract_shared_fold", extract_fused, "extract_shared_fold"),
             ("forward_fft", fft, "forward_spectrum_four_step"),
+            ("forward_fft_2pass", fft, "forward_spectrum_two_pass"),
             ("tile_probe", probes, "tile_probe"))
 
 
@@ -614,6 +634,10 @@ KERNELS = {
     "forward_fft": ("fdc_tpu_torch/csrc/forward_fft.cu",
                     "tools/pallas_fft_proto.py:83,99; "
                     "tools/pallas_fft_proto2.py:90"),
+    # kernel F's two-pass form, blocksizes above 16384 (phase 10)
+    "forward_fft_2pass": ("fdc_tpu_torch/csrc/forward_fft_2pass.cu",
+                          "tools/pallas_fft_proto.py:83,99; "
+                          "tools/pallas_fft_proto2.py:90"),
     "tile_probe": ("fdc_tpu_torch/csrc/fft_probes.cu",
                    "tools/pallas_fft_micro.py:39-90; "
                    "tools/pallas_fft_micro2.py:44-92"),
@@ -1280,7 +1304,10 @@ def tone_check(res, fdc, tone_bin, from_block=4):
                           - (f0 + 0.5) * n),
     )
     bucket = next(b for b in tp.buckets if chan in b.channel_ids)
-    y = res.throughput[chan][max(2000, from_block * bucket.out_len):]
+    # float64: float32 phases unwrapped over the 32768-point flagship's
+    # 4e5 samples lose the fit (the unwrap's running sum rounds)
+    y = res.throughput[chan][max(2000, from_block * bucket.out_len):].astype(
+        np.complex128)
     ph = np.unwrap(np.angle(y))
     fit = np.polyfit(np.arange(len(ph)), ph, 1)
     amp = float(np.abs(y).mean())
@@ -1343,7 +1370,7 @@ def plan_tally(fdc):
             del sd.reconcile_split
 
 
-def run_path(name, fdc, x, expect):
+def run_path(name, fdc, x, expect, tag="phase 3"):
     """Phase 3 for one path: :func:`drive` with the launch counts zeroed
     just before and read just after; checks that every kernel of the path
     ran, blocks and finite events. Returns the whole batches' result,
@@ -1372,7 +1399,7 @@ def run_path(name, fdc, x, expect):
         assert np.all(np.isfinite(s)), name
     kinds, chans = event_kinds(events)
     fins = sum(ev.finalized for ev in events)
-    log(f"phase 3: {name}: {blocks} blocks in {wall:.2f} s (host clock); "
+    log(f"{tag}: {name}: {blocks} blocks in {wall:.2f} s (host clock); "
         f"events {kinds}, {fins} finalized; launches {launches}"
         + (f"; plans {tally}" if fdc.segments else ""))
     return res, kinds, chans, launches, tally, fins, fin
@@ -1392,7 +1419,7 @@ def spectra_check(name, fdc, x, res):
         f"{len(spectra)} batches: {len(ev)} events, equal to process()")
 
 
-def compare_cpu(name, make, x):
+def compare_cpu(name, make, x, tag="phase 4"):
     """Phase 4 for one path: two steps and two batches' events, card
     against the CPU plain path."""
     import torch
@@ -1412,7 +1439,7 @@ def compare_cpu(name, make, x):
     ev_c, ev_g = ([e for r in drive(f, x[:2 * bs]) for e in r.events]
                   for f in (cpu, gpu))
     compare_events(ev_g, ev_c, f"{name} events")
-    log(f"phase 4: {name}: 2 steps card == cpu plain (max abs err "
+    log(f"{tag}: {name}: 2 steps card == cpu plain (max abs err "
         f"{worst:.3g}; streams and extractions within {worst_rel:.3g} of "
         f"their max), {len(ev_g)} events identical")
 
@@ -2427,6 +2454,310 @@ def sharded_phase(paths, card, summary):
                 f"({time.perf_counter() - t:.1f} s)")
 
 
+# -- phase 10: the FFT route, blocksizes above 16384, the utilities -----
+
+# the paths phase 10 runs again with use_mxu_fft=False, and the kernels
+# each must launch there: no A, E or F (every transform is torch.fft),
+# B and C once a step on the detection paths, D once a step on powact32
+FFT_ROUTE_PATHS = {
+    "flagship": ("candidate_packs", "slot_lifecycle"),
+    "example": ("candidate_packs", "slot_lifecycle"),
+    "powact32": ("powact",),
+    "hunter4seg": ("candidate_packs", "slot_lifecycle"),
+    "vcm4seg": ("candidate_packs", "slot_lifecycle"),
+}
+PRODUCT_KERNELS = ("extract_shared", "extract_shared_fold", "extract_static",
+                   "forward_fft", "forward_fft_2pass")
+
+
+def two_pass_cases():
+    """Kernel F's two-pass form at [512, 32768], [256, 65536] and
+    [128, 131072], B blocks of seeded noise, and at [512, 32768] into rows
+    1..B of an extended spectrum (row 0 must keep its value). The bound
+    is the function's (the blocks read and the spectrum written once, an
+    FFT's 5 N log2 N operations a block); the library call is
+    ``torch.fft.fft`` + ``fftshift`` + the 1/N scale (the port's
+    ``torch.fft`` route)."""
+    import torch
+
+    from fdc_tpu_torch.ops import fft
+
+    rng = np.random.default_rng(10)
+
+    def noise(b, n):
+        return torch.from_numpy(
+            (rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))
+             ).astype(np.complex64)).to("cuda")
+
+    def f2_case(what, blocks, out=None):
+        rows, n = blocks.shape
+        return case("forward_fft_2pass",
+                    lambda: fft.forward_spectrum_two_pass(blocks, out=out),
+                    lambda: fft.forward_spectrum_two_pass_plain(blocks),
+                    cmp_close("forward_fft_2pass", 0.0, FFT_TOL), what,
+                    2 * blocks.numel() * 8, 5.0 * n * math.log2(n) * rows,
+                    lambda: fft.forward_spectrum(blocks, use_mxu=False))
+
+    out = [f2_case(f"[{b}, {n}]", noise(b, n))
+           for b, n in ((512, 32768), (256, 65536), (128, 131072))]
+    ext = torch.full((513, 32768), 3 + 4j, dtype=torch.complex64,
+                     device="cuda")
+    cs = f2_case("into spec_ext[1:] [512, 32768]", noise(512, 32768),
+                 out=ext[1:])
+    cmp = cs["cmp"]
+
+    def cmp_ext(a, b):
+        assert bool((ext[0] == 3 + 4j).all()), "row 0 of spec_ext written"
+        return cmp(a, b)
+    cs["cmp"] = cmp_ext
+    return out + [cs]
+
+
+@contextlib.contextmanager
+def counted_steps(fdc):
+    """Count the steps a path runs inside the block: the channelizer's
+    ``_device_step`` calls, or the vcm detector's ``step`` calls."""
+    obj, attr = ((fdc.adc, "step") if isinstance(fdc, VcmPath)
+                 else (fdc, "_device_step"))
+    orig, n = getattr(obj, attr), [0]
+
+    def step(*a, **kw):
+        n[0] += 1
+        return orig(*a, **kw)
+    setattr(obj, attr, step)
+    try:
+        yield n
+    finally:
+        delattr(obj, attr)
+
+
+def product_slots(adc, on):
+    """Put the vcm detector's slot extraction on the product route (``on``:
+    each segment's W-point IDFT matrix, as the segments of a channelizer
+    with ``use_mxu_fft`` hold it) or back on the FFT route (no matrix):
+    the vcm detector's former route, timed beside its FFT route."""
+    import torch
+
+    from fdc_tpu_torch.ops.fft import _rr_idft_matrix, interleave_rows
+
+    for sd in adc.segments:
+        for w, name in sd._idft_of.items():
+            mat = None
+            if on:
+                mat = torch.from_numpy(interleave_rows(_rr_idft_matrix(
+                    w, 0, False, 1.0, pairs=True))).to(adc.device)
+            sd.register_buffer(name, mat)
+
+
+def step_ms(fdc, x, iters=20, busy=False):
+    """Milliseconds a step by CUDA events over ``iters`` steps, the carry
+    fed forward (phase 5's step time); with ``busy`` also the device busy
+    milliseconds of a step with the stream held (phase 5's, the median
+    of 3 ``held_time`` readings, None if none held)."""
+    import statistics
+
+    import torch
+
+    xb = torch.from_numpy(x[:fdc.batch_samples]).to(fdc.device)
+    carry = [fdc._device_init()]
+
+    def step():
+        carry[0], _ = fdc._device_step(carry[0], xb, 0)
+    ms = cuda_time(step, iters)
+    if not busy:
+        return ms
+    held = [h for h in (held_time(step, 3 * ms + 5.0) for _ in range(3))
+            if h is not None]
+    return ms, statistics.median(held) if held else None
+
+
+def fft_route_path(name, p, card):
+    """One path with use_mxu_fft=False on the card: process() + flush()
+    with the launch counts zeroed just before and read just after (no A,
+    E or F; B and C, or D, once a step), its events equal to phase 3's
+    product-route run, two steps and two batches against the CPU plain
+    path, and its step time. Returns the step milliseconds."""
+    import torch
+
+    cfg = p["fdc"].config.replace(use_mxu_fft=False)
+    make = ((lambda device: VcmPath(cfg, device)) if name == "vcm4seg"
+            else channelizer(cfg))
+    fdc = make("cuda")
+    expect = FFT_ROUTE_PATHS[name]
+    with counted_steps(fdc) as steps:
+        res, kinds, chans, got, tally, fins, fin = run_path(
+            f"{name} use_mxu_fft=False", fdc, p["x"], expect,
+            tag="phase 10")
+    for k in PRODUCT_KERNELS:
+        assert got[k] == 0, f"{name} FFT route launched {k}"
+    for k in expect:
+        assert got[k] == steps[0], (name, k, got[k], steps[0])
+    others = set(KERNELS) - set(expect)
+    assert not any(got[k] for k in others), (name, got)
+    ref = p["ref"][0].events + p["ref"][1].events
+    compare_events(res.events + fin.events, ref,
+                   f"{name} FFT route against phase 3")
+    compare_cpu(f"{name} use_mxu_fft=False", make, p["x"], tag="phase 10")
+    ms, busy = step_ms(fdc, p["x"], busy=True)
+    torch.cuda.synchronize()
+    log(f"phase 10: {name} use_mxu_fft=False: {steps[0]} steps, "
+        f"{', '.join(f'{k} {got[k]}' for k in expect)} (one a step), no A, "
+        f"E or F; {len(ref)} events equal to phase 3's product route; "
+        f"step B={cfg.batch_blocks} {ms:.4f} ms "
+        f"({fdc.batch_samples / ms / 1e3:.1f} MS/s), device busy "
+        f"{fmt_ms(busy)} with the stream held {card}")
+    return fdc, ms
+
+
+def large_n_phase(paths, card, summary, launches):
+    """Phase 10: kernel F's two-pass form against its plain version (and
+    timed beside it, its bound, the library call and by graph replay);
+    the flagship at blocksize 32768, B = 512, through process() + flush()
+    on the card (two-pass F, A, B, C) and against the CPU plain path; the
+    flagship, the example, powact32, hunter4seg and vcm4seg with
+    use_mxu_fft=False; the vcm detector's step with its slots on the
+    product route (its former one) and the FFT route, in turns;
+    ``utils.profiling`` on the flagship beside its step time; and
+    ``utils.resample`` on the card against the CPU."""
+    two_pass_kernel(summary["forward_fft_2pass"], card)
+    flagship_32768(launches, card)
+    fft_route_phase(paths, card)
+    utilities_phase(paths, card)
+
+
+def two_pass_kernel(ent, card):
+    """Phase 10's kernel cases (:func:`two_pass_cases`), summed into the
+    kernel summary's entry ``ent``."""
+    import torch
+
+    for cs in two_pass_cases():
+        got = cs["kern"]()
+        torch.cuda.synchronize()
+        err = cs["cmp"](got, cs["plain"]())
+        t_bytes = cs["bytes"] / PEAK_BYTES * 1e3
+        t_ops = cs["flops"] / PEAK_FP32 * 1e3
+        bound = max(t_bytes, t_ops)
+        k_ms, p_ms = cuda_time(cs["kern"], 20), cuda_time(cs["plain"], 3)
+        l_ms = cuda_time(cs["library"], 20)
+        ent["max_abs_err"] = max(ent["max_abs_err"], err)
+        ent["ms"] += k_ms
+        ent["plain_ms"] += p_ms
+        ent["library_ms"] += l_ms
+        ent["bound_ms"] += bound
+        if bound > ent["bound_max"]:
+            ent["bound_max"] = bound
+            ent["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"phase 10: forward_fft_2pass {cs['shape']}: matches plain, max "
+            f"abs err {err:.3g}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"library {l_ms:.4f} ms; device (graph): kernel "
+            f"{fmt_ms(graph_time(cs['kern']))}, library "
+            f"{fmt_ms(graph_time(cs['library']))}; bound {bound:.5f} ms "
+            f"({cs['bytes'] / 1e6:.1f} MB, {cs['flops'] / 1e9:.3f} GFLOP; "
+            f"the two passes move {2 * cs['bytes'] / 1e6:.1f} MB, "
+            f"{2 * t_bytes:.5f} ms) {card}")
+
+
+def flagship_32768(launches, card, batch_blocks=512):
+    """The flagship at blocksize 32768: kernel F's two-pass form on the
+    path, its launches added to the kernel summary's."""
+    import torch
+
+    from fdc_tpu_torch.flagship import _flagship
+
+    cfg = _flagship(blocksize=32768, batch_blocks=batch_blocks)
+    make = channelizer(cfg)
+    fdc = make("cuda")
+    x = scripted_capture(cfg, 2 * fdc.batch_samples + 7 * cfg.inplen + 1234)
+    with counted_steps(fdc) as steps:
+        res, kinds, chans, got, tally, fins, fin = run_path(
+            "flagship blocksize=32768", fdc, x,
+            ("forward_fft_2pass", "extract_shared", "candidate_packs",
+             "slot_lifecycle"), tag="phase 10")
+    assert got["forward_fft"] == 0 and got["forward_fft_2pass"] == steps[0]
+    launches["forward_fft_2pass"] += got["forward_fft_2pass"]
+    assert kinds.get("PowActChan", 0) >= 1 and kinds.get("DETECTED", 0) >= 1
+    compare_cpu("flagship blocksize=32768", make, x, tag="phase 10")
+    chan, amp, snr = tone_check(res, fdc, TONE_BIN)
+    assert abs(amp - 1.0) < 0.05 and snr > 25.0, (amp, snr)
+    ms = step_ms(fdc, x, 10)
+    log(f"phase 10: flagship blocksize=32768: {steps[0]} steps, F2 once a "
+        f"step; tone in channel {chan}: amp {amp:.4f}, SNR {snr:.1f} dB; "
+        f"step B={batch_blocks} {ms:.4f} ms "
+        f"({fdc.batch_samples / ms / 1e3:.1f} MS/s) {card}")
+    del fdc, res, fin
+    torch.cuda.empty_cache()
+
+
+def fft_route_phase(paths, card):
+    """The FFT route (use_mxu_fft=False) on five paths, then vcm4seg's
+    step with its slots on either route."""
+    routes = {name: fft_route_path(name, paths[name], card)
+              for name in FFT_ROUTE_PATHS}
+
+    # vcm4seg's slots: the product route (before) and the FFT route
+    # (after), in turns on one detector
+    vcm, x = routes["vcm4seg"][0], paths["vcm4seg"]["x"]
+    times = {"product": [], "fft": []}
+    for route in ("product", "fft", "fft", "product"):
+        product_slots(vcm.adc, route == "product")
+        times[route].append(step_ms(vcm, x, busy=True))
+    product_slots(vcm.adc, False)
+
+    def fmt(route):
+        return " / ".join(f"{ms:.4f} ms (busy {fmt_ms(b)})"
+                          for ms, b in times[route])
+    log(f"phase 10: vcm4seg step B={vcm.config.batch_blocks} by CUDA events "
+        f"(device busy with the stream held), slots on the product route "
+        f"{fmt('product')}, on the FFT route {fmt('fft')} (product, FFT, "
+        f"FFT, product) {card}")
+
+
+def utilities_phase(paths, card):
+    """``utils.profiling`` on the flagship beside its step time, and
+    ``utils.resample`` on the card against the CPU."""
+    import torch
+
+    from fdc_tpu_torch.utils.profiling import (
+        measure_samples_per_sec,
+        time_scanned_stats,
+    )
+    from fdc_tpu_torch.utils.resample import rational_resample
+
+    flag = paths["flagship"]
+    ms = step_ms(flag["fdc"], flag["x"])
+    xb = torch.from_numpy(flag["x"][:flag["fdc"].batch_samples]).to("cuda")
+    bb = flag["fdc"].config.batch_blocks
+    st = time_scanned_stats(
+        lambda c, xin, t: flag["fdc"]._device_step(c, xin, t * bb),
+        flag["fdc"]._device_init(), xb, k=8, repeats=5)
+    rate = measure_samples_per_sec(flag["fdc"])
+    assert np.isfinite(rate) and rate > 0 and st["median"] > 0
+    log(f"phase 10: utils.profiling on the flagship: time_scanned_stats "
+        f"(K = 8 against 2K, timer: {st['timer']}) median "
+        f"{st['median'] * 1e3:.4f} ms/step (q25 {st['q25'] * 1e3:.4f}, q75 "
+        f"{st['q75'] * 1e3:.4f}); measure_samples_per_sec "
+        f"{rate / 1e6:.1f} MS/s; the step by CUDA events {ms:.4f} ms "
+        f"({flag['fdc'].batch_samples / ms / 1e3:.1f} MS/s) {card}")
+
+    # utils.resample on the card against the CPU
+    rng = np.random.default_rng(11)
+    t = np.arange(1 << 16)
+    xs = (np.exp(2j * np.pi * 0.05 * t)[None]
+          + 0.1 * (rng.standard_normal((8, t.size))
+                   + 1j * rng.standard_normal((8, t.size)))
+          ).astype(np.complex64)
+    for up, down in ((3, 2), (1, 4)):
+        got = rational_resample(torch.from_numpy(xs).to("cuda"), up, down)
+        ref = rational_resample(torch.from_numpy(xs), up, down)
+        ok, err = close(got.cpu(), ref, RTOL, ATOL)
+        assert ok and got.shape == ref.shape, (up, down, err)
+        r_ms = cuda_time(lambda: rational_resample(
+            torch.from_numpy(xs).to("cuda"), up, down), 5)
+        log(f"phase 10: rational_resample {up}/{down} [8, {t.size}] on the "
+            f"card == CPU (max abs err {err:.3g}); {r_ms:.4f} ms a call, "
+            f"host-to-card copy included {card}")
+
+
 def main() -> int:
     import torch
 
@@ -2582,6 +2913,10 @@ def main() -> int:
     # -- phase 9: the sharded step over meshes of ranks ---------------------
     sharded_phase(paths, card, summary)
     phase_done(9)
+
+    # -- phase 10: the FFT route, blocksizes above 16384, the utilities ----
+    large_n_phase(paths, card, summary, launches)
+    phase_done(10)
     log(f"total: {time.perf_counter() - t_run:.1f} s wall")
 
     rows = []

@@ -57,6 +57,7 @@ _SIGNATURES = {
     "fdc_powact": [_P, _I, _I, _P, _P, _P, _P, _F, _I, _P, _P, _P, _P,
                    _P, _P, _P, _P],
     "fdc_forward_fft": [_P, _I, _I, _P, _P, _P],
+    "fdc_forward_fft_2pass": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "fdc_tile_probe": [_I, _P, _P, _P, _P, _I, _P, _P],
 }
 

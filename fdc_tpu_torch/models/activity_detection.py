@@ -11,7 +11,9 @@ normalization (:630-650), FLT_MIN zero-denominator edge ratios (:701-705,
 convention and inline maxblocks partial emission (the copied
 emitters, native or Python). All segments' lifecycle scans run in one
 kernel C launch (``scan_slots_multi``); their candidates go through
-kernel B.
+kernel B. Their slots extract through the FFT route (``torch.fft``), as
+``fdc_tpu``'s vcm detector, whose segments keep SegmentDetector's
+default ``use_mxu=False``.
 """
 
 from __future__ import annotations
@@ -87,6 +89,9 @@ class ActivityDetectionChannelizer(nn.Module):
                 extract_budget=extract_budget, geometry=geo, vcm=True,
                 extract_width_split=extract_width_split,
                 extract_budget_narrow=extract_budget_narrow,
+                # fdc_tpu's vcm detector takes SegmentDetector's default:
+                # its slots extract through the FFT route
+                use_mxu=False,
             ))
             if self.log is not None:
                 # per-segment banner (reference:

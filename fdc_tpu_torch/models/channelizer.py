@@ -19,8 +19,12 @@ follow its contract (``throughput_buckets``, ``powact{...}``,
 layout, so the two implementations compare key by key and a carry moves
 between them (``fdc_tpu_torch.convert``).
 
-Configurations that need parts not yet ported raise NotImplementedError
-at construction (see ``_check_slice``).
+Both settings of ``use_mxu_fft`` run, as in ``fdc_tpu``: on (the default)
+the static buckets extract through kernels A / E and the slots through
+one product with an IDFT matrix; off, every subband transform is
+``torch.fft`` (cuFFT on the card) and the detection measures are a
+separate pass. Any power-of-2 blocksize runs: kernel F up to 16384
+points, its two-pass form above.
 """
 
 from __future__ import annotations
@@ -49,13 +53,15 @@ from fdc_tpu_torch.models.segment_detection import (
 from fdc_tpu_torch.models.throughput import ThroughputChannelizer
 from fdc_tpu_torch.ops import detect as detect_ops
 from fdc_tpu_torch.ops.extract import (
+    FftTable,
     bucket_folded,
     extract_bucket,
     extract_bucket_measured,
     extract_bucket_phased,
+    measures_ride,
 )
 from fdc_tpu_torch.ops.extract_fused import mask_extent
-from fdc_tpu_torch.ops.fft import FOUR_STEP_MAX_N, forward_spectrum
+from fdc_tpu_torch.ops.fft import forward_spectrum
 from fdc_tpu_torch.ops.framing import frame_blocks
 from fdc_tpu_torch.runtime.emission import (
     NativePowerActivationEmitter,
@@ -126,20 +132,6 @@ def emitter_classes(native_emission):
     return PowerActivationEmitter, SegmentDetectionEmitter
 
 
-def _check_slice(cfg: ChannelizerConfig) -> None:
-    """Refuse configurations that need parts of fdc_tpu not ported yet."""
-    missing = []
-    if not cfg.use_mxu_fft:
-        missing.append("use_mxu_fft=False (FFT-lowered subband transforms)")
-    elif cfg.blocksize > FOUR_STEP_MAX_N:
-        missing.append(f"use_mxu_fft with blocksize > {FOUR_STEP_MAX_N} "
-                       "(the four-step forward FFT's kernel)")
-    if missing:
-        raise NotImplementedError(
-            "fdc_tpu_torch does not port yet: " + "; ".join(missing)
-        )
-
-
 def _pairs_to_complex(a: np.ndarray) -> np.ndarray:
     """float32 [..., 2] pairs -> complex64 [...]."""
     return np.ascontiguousarray(a, np.float32).view(np.complex64)[..., 0]
@@ -176,7 +168,6 @@ class FrequencyDomainChannelizer(nn.Module):
             config = ChannelizerConfig(**kwargs)
         elif kwargs:
             config = config.replace(**kwargs)
-        _check_slice(config)
         self.config = cfg = config
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -189,20 +180,22 @@ class FrequencyDomainChannelizer(nn.Module):
         tp_chans = cfg.fdc_throughput_channels()
         if tp_chans:
             self.throughput = ThroughputChannelizer(
-                cfg.blocksize, cfg.relinvovl, tp_chans, cfg.windowtype
+                cfg.blocksize, cfg.relinvovl, tp_chans, cfg.windowtype,
+                use_mxu=cfg.use_mxu_fft,
             )
         self.power_bank: Optional[PowerActivationBank] = None
         pa_chans = cfg.fdc_activity_controlled_channels()
         if pa_chans:
             self.power_bank = PowerActivationBank(
                 cfg.blocksize, cfg.relinvovl, pa_chans,
-                cfg.act_contr_threshold,
+                cfg.act_contr_threshold, use_mxu=cfg.use_mxu_fft,
             )
         # -- fused extraction plan ---------------------------------------------
         # throughput + burst channels sharing an FFT width extract as one
         # bucket over spec_ext (JAX: models/channelizer.py:255-271); the
         # throughput gain folds into its (linear) windows. Their windows
-        # differ, so the table is per channel (kernel E).
+        # differ, so the table is per channel (kernel E), or the windows
+        # on the FFT route.
         self._fused = {}
         if self.throughput and self.power_bank:
             tp_by_w = {b.width: b for b in self.throughput.buckets}
@@ -215,10 +208,14 @@ class FrequencyDomainChannelizer(nn.Module):
                 name = f"fused_w{w}"
                 self.register_buffer(f"{name}_starts",
                                      torch.from_numpy(starts))
-                self.register_buffer(f"{name}_folded", torch.from_numpy(
-                    bucket_folded(cfg.blocksize, starts, wins,
-                                  keep_from=w - pb.out_len, gain=1.0)
-                ))
+                if cfg.use_mxu_fft:
+                    self.register_buffer(f"{name}_folded", torch.from_numpy(
+                        bucket_folded(cfg.blocksize, starts, wins,
+                                      keep_from=w - pb.out_len, gain=1.0)
+                    ))
+                else:
+                    self.register_buffer(f"{name}_windows",
+                                         torch.from_numpy(wins))
                 self._fused[w] = (name, tb)
         # a split segment expands into parts on the parent's cell grid
         # with overlapping scan margins (config.split_segment_geometry),
@@ -255,6 +252,7 @@ class FrequencyDomainChannelizer(nn.Module):
                     extract_width_split=cfg.extract_width_split,
                     extract_budget_narrow=cfg.extract_budget_narrow,
                     core_bins=core,
+                    use_mxu=cfg.use_mxu_fft,
                 ))
 
         # -- per-component lifecycle loggers (reference:
@@ -447,8 +445,7 @@ class FrequencyDomainChannelizer(nn.Module):
         fused_mats = {}
         fused_pa_ext = {}
         for w, (name, tb) in self._fused.items():
-            y = extract_bucket(spec_ext, getattr(self, f"{name}_starts"),
-                               getattr(self, f"{name}_folded"))
+            y = extract_bucket(spec_ext, *self._fused_tables(name, w))
             n_tp = len(tb.channel_ids)
             fused_mats[w] = self.throughput.finish_bucket(tb, y[:n_tp, 1:],
                                                           t0)
@@ -469,9 +466,10 @@ class FrequencyDomainChannelizer(nn.Module):
                     mats.append(self.throughput.finish_bucket(bucket, y, t0))
                     continue
                 if (detect and self.measure_masks is not None
-                        and powers_fused is None and folded.dim() == 2):
+                        and powers_fused is None and measures_ride(folded)):
                     # the detection measures ride the first non-fused
-                    # shared-matrix bucket's kernel A launch
+                    # shared-matrix bucket's kernel A launch (the FFT
+                    # route returns no powers: the |X|^2 pass below)
                     y, powers_fused = extract_bucket_measured(
                         spec, starts, folded, r, self.measure_masks,
                         self._measure_extent
@@ -517,6 +515,16 @@ class FrequencyDomainChannelizer(nn.Module):
             seg_powers, [sd.pack_spec for sd in self.segments]
         ) if seg_powers else []
         return out, pa_powers, pa_ext, seg_powers, seg_packed
+
+    def _fused_tables(self, name: str, w: int):
+        """(starts, table) of the fused family ``name`` of width ``w``:
+        its per-channel matrices, or an ``FftTable`` on the FFT route."""
+        starts = getattr(self, f"{name}_starts")
+        if self.config.use_mxu_fft:
+            return starts, getattr(self, f"{name}_folded")
+        tb = self._fused[w][1]
+        return starts, FftTable(getattr(self, f"{name}_windows"), 1.0,
+                                w - tb.out_len)
 
     def _scan_detections(self, carry_io, pa_powers, seg_packed):
         """The sequential detection logic — slot lifecycles and the burst

@@ -22,7 +22,6 @@ from torch import nn
 from fdc_tpu_torch.config import solve_power_channel
 from fdc_tpu_torch.ops.detect import band_power
 from fdc_tpu_torch.ops import powact
-from fdc_tpu_torch.ops.extract import bucket_folded
 from fdc_tpu_torch.models.throughput import BucketTables
 from fdc_tpu_torch.ops.windows import sine_flank_window_bank
 
@@ -47,17 +46,19 @@ class _Bucket:
 
 class PowerActivationBank(BucketTables, nn.Module):
     """Bank of C power-activated channels. Buffers: ``measure_masks``
-    [N, C], ``delta`` [C] int32, and per bucket ``{name}_starts`` /
-    ``{name}_folded`` (gain 1; a shared matrix for kernel A, per-channel
-    matrices for kernel E when the windows differ)."""
+    [N, C], ``delta`` [C] int32, and per bucket ``{name}_starts`` and,
+    with ``use_mxu``, ``{name}_folded`` (gain 1; a shared matrix for
+    kernel A, per-channel matrices for kernel E when the windows differ),
+    else ``{name}_windows`` (the FFT route)."""
 
     def __init__(self, blocksize: int, relinvovl: int, channels,
-                 thresh_db: float):
+                 thresh_db: float, use_mxu: bool = False):
         super().__init__()
         if thresh_db <= 0.0:
             raise ValueError("Threshold is dB and must be > 0")
         self.blocksize = blocksize
         self.relinvovl = relinvovl
+        self.use_mxu = bool(use_mxu)
         # linear threshold (reference: lib/PowerActivationChannel_impl.cc:377-381)
         self.thresh = float(10.0 ** (thresh_db / 10.0))
         self.geometry = [
@@ -96,14 +97,12 @@ class PowerActivationBank(BucketTables, nn.Module):
                 name=f"w{width}",
             )
             self.buckets.append(bucket)
-            self.register_buffer(f"{bucket.name}_starts",
-                                 torch.from_numpy(starts))
-            self.register_buffer(f"{bucket.name}_folded", torch.from_numpy(
-                bucket_folded(
-                    blocksize, starts, wins,
-                    keep_from=width - bucket.out_len, gain=1.0,
-                )
-            ))
+            self._register_tables(bucket, blocksize)
+
+    @staticmethod
+    def gain(bucket) -> float:
+        """Burst channels keep the unnormalized IFFT's scale."""
+        return 1.0
 
     @property
     def num_channels(self) -> int:

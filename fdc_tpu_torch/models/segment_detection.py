@@ -18,7 +18,9 @@ Two-tier extraction (``extract_width_split``): slots whose width fits the
 split ship from a second, narrower [E_narrow, B+1, W_split] bucket; wide
 slots and narrow overflow ship from the w_cap bucket. With ``vcm`` the
 detector follows the multi-segment block's conventions
-(``models.activity_detection``).
+(``models.activity_detection``). ``use_mxu`` (the ``use_mxu_fft`` knob)
+extracts the slots by one product with the W-point IDFT matrix; without
+it by ``torch.fft`` (``ops.fft.interp_subband_ifft``), as ``fdc_tpu``.
 """
 
 from __future__ import annotations
@@ -44,10 +46,10 @@ class SegmentDetector(nn.Module):
     """One detection segment with an S-slot dynamic channel table.
 
     Buffers: ``window_table`` [log2(w_cap)+1, w_cap] (phase-0 flank window
-    of every power-of-2 width, zero-padded), ``idft`` [2 w_cap, 2 w_cap]
-    (the slot transform, rows interleaved) and, with
-    ``extract_width_split``, ``idft_narrow`` (the same at the split
-    width)."""
+    of every power-of-2 width, zero-padded) and, with ``use_mxu``,
+    ``idft`` [2 w_cap, 2 w_cap] (the slot transform, rows interleaved)
+    and, with ``extract_width_split``, ``idft_narrow`` (the same at the
+    split width)."""
 
     def __init__(
         self,
@@ -69,8 +71,10 @@ class SegmentDetector(nn.Module):
         extract_width_split: int = 0,
         extract_budget_narrow: int = 0,
         core_bins=None,
+        use_mxu: bool = False,
     ):
         super().__init__()
+        self.use_mxu = bool(use_mxu)  # the slot transform as a product
         if thresh_db < 0.0:
             raise ValueError("Threshold is dB and must be >= 0")
         if window_flank_puffer < 0.0:
@@ -165,7 +169,7 @@ class SegmentDetector(nn.Module):
         for w, name in self._idft_of.items():
             self.register_buffer(name, torch.from_numpy(interleave_rows(
                 _rr_idft_matrix(w, 0, False, 1.0, pairs=True)
-            )))
+            )) if self.use_mxu else None)
 
     # -- state ----------------------------------------------------------------
 
@@ -352,7 +356,8 @@ class SegmentDetector(nn.Module):
         interpolated pairs (see ``ops.extract.extract_dynamic``), width
         the bucket's (default w_cap; the split width for the narrow
         bucket). A sentinel id (S) and a slot wider than the bucket get
-        start 0 and an all-zero window, hence zero rows."""
+        start 0 and an all-zero window, hence zero rows. Without
+        ``use_mxu`` the transform is ``torch.fft``'s."""
         w = width or self.w_cap
         ids = slot_ids.long()
         valid = ids < self.max_slots

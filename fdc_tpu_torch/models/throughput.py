@@ -4,7 +4,8 @@ Port of ``fdc_tpu.models.throughput`` (reference:
 python/FrequencyDomainChannelizer.py:218-231): channels sharing an FFT
 width form one bucket, extracted together by kernel A — or by kernel E
 when their windows differ (channels of different bandwidths that round
-to one power-of-2 width).
+to one power-of-2 width) — or, with ``use_mxu=False``, on the FFT route
+(``ops.extract.FftTable``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,11 @@ import torch
 from torch import nn
 
 from fdc_tpu_torch.config import WindowType, solve_throughput_channel
-from fdc_tpu_torch.ops.extract import apply_phase_pairs, bucket_folded
+from fdc_tpu_torch.ops.extract import (
+    FftTable,
+    apply_phase_pairs,
+    bucket_folded,
+)
 from fdc_tpu_torch.ops.windows import base_window
 
 __all__ = ["BucketTables", "ThroughputChannelizer", "split_rows"]
@@ -41,12 +46,32 @@ def split_rows(a, parts: int):
 class BucketTables:
     """The width buckets of a channel bank (an ``nn.Module`` with
     ``buckets``, each with ``starts``, ``windows``, ``channel_ids`` and
-    the buffers ``{name}_starts`` / ``{name}_folded``)."""
+    the buffers ``{name}_starts`` and ``{name}_folded`` (the product
+    route, ``use_mxu``) or ``{name}_windows`` (the FFT route), and a
+    transform ``gain``)."""
+
+    def _register_tables(self, bucket, blocksize: int):
+        """Register a bucket's device tables for the bank's route."""
+        starts = torch.from_numpy(bucket.starts)
+        self.register_buffer(f"{bucket.name}_starts", starts)
+        keep_from = bucket.width - bucket.out_len
+        if self.use_mxu:
+            self.register_buffer(f"{bucket.name}_folded", torch.from_numpy(
+                bucket_folded(blocksize, bucket.starts, bucket.windows,
+                              keep_from=keep_from, gain=self.gain(bucket))))
+        else:
+            self.register_buffer(f"{bucket.name}_windows",
+                                 torch.from_numpy(bucket.windows))
 
     def tables(self, bucket):
-        """(starts, folded) device tables of a bucket."""
-        return (getattr(self, f"{bucket.name}_starts"),
-                getattr(self, f"{bucket.name}_folded"))
+        """(starts, table) device tables of a bucket: the folded matrix
+        on the product route, an ``FftTable`` on the FFT route."""
+        starts = getattr(self, f"{bucket.name}_starts")
+        if self.use_mxu:
+            return starts, getattr(self, f"{bucket.name}_folded")
+        return starts, FftTable(getattr(self, f"{bucket.name}_windows"),
+                                self.gain(bucket),
+                                bucket.width - bucket.out_len)
 
     def row_slice(self, c: int, parts: int):
         """Chan rank ``c`` of ``parts``: a copy of this bank whose every
@@ -58,12 +83,12 @@ class BucketTables:
         out.__dict__["_buffers"] = dict(self._buffers)
         out.buckets = []
         for b in self.buckets:
-            starts, folded = self.tables(b)
-            out._buffers[f"{b.name}_starts"] = (
-                split_rows(starts, parts)[c].contiguous())
-            if folded.dim() == 3:
-                out._buffers[f"{b.name}_folded"] = (
-                    split_rows(folded, parts)[c].contiguous())
+            for key in ("starts", "folded", "windows"):
+                t = self._buffers.get(f"{b.name}_{key}")
+                # a shared matrix is every rank's
+                if t is not None and not (key == "folded" and t.dim() == 2):
+                    out._buffers[f"{b.name}_{key}"] = (
+                        split_rows(t, parts)[c].contiguous())
             rows = split_rows(b.starts, parts)[c]
             out.buckets.append(dataclasses.replace(
                 b, channel_ids=tuple(range(len(rows))), starts=rows,
@@ -83,15 +108,19 @@ class _Bucket:
 
 class ThroughputChannelizer(BucketTables, nn.Module):
     """Width-bucketed fixed-channel extractor. Buffers per bucket:
-    ``{name}_starts`` [C] int32 and ``{name}_folded`` (window * gain l *
-    trim * IDFT, rows interleaved): [2l, 2k] float32 shared by the bucket
-    (kernel A), or [C, 2l, 2k] when the windows differ (kernel E)."""
+    ``{name}_starts`` [C] int32 and, with ``use_mxu`` (the ``use_mxu_fft``
+    knob), ``{name}_folded`` (window * gain l * trim * IDFT, rows
+    interleaved): [2l, 2k] float32 shared by the bucket (kernel A), or
+    [C, 2l, 2k] when the windows differ (kernel E); without it
+    ``{name}_windows`` [C, l], the FFT route's."""
 
     def __init__(self, blocksize: int, relinvovl: int, channels,
-                 windowtype: WindowType = WindowType.RECTANGULAR):
+                 windowtype: WindowType = WindowType.RECTANGULAR,
+                 use_mxu: bool = False):
         super().__init__()
         self.blocksize = blocksize
         self.relinvovl = relinvovl
+        self.use_mxu = bool(use_mxu)
         self.geometry = [
             solve_throughput_channel(blocksize, relinvovl, f, bw)
             for f, bw in channels
@@ -116,14 +145,13 @@ class ThroughputChannelizer(BucketTables, nn.Module):
                 name=f"w{width}",
             )
             self.buckets.append(bucket)
-            self.register_buffer(f"{bucket.name}_starts",
-                                 torch.from_numpy(starts))
-            self.register_buffer(f"{bucket.name}_folded", torch.from_numpy(
-                bucket_folded(
-                    blocksize, starts, wins,
-                    keep_from=width - bucket.out_len, gain=float(width),
-                )
-            ))
+            self._register_tables(bucket, blocksize)
+
+    @staticmethod
+    def gain(bucket) -> float:
+        """The trailing multiply_const l of the reference's chain
+        (reference: python/FrequencyDomainChannelizer.py:231)."""
+        return float(bucket.width)
 
     @property
     def num_channels(self) -> int:

@@ -8,15 +8,22 @@ reference's window banks is the base window times e^{j*2pi*p/R}, so the
 overlap-save phase compensation factors out of the transform and is
 applied as a per-row scalar rotation (:func:`apply_phase_pairs`).
 
-Static buckets always extract through a kernel (``extract_fused``):
-kernel A when the bucket's channels share one window, kernel E when each
-has its own. The JAX package's TPU-only engagement gates and VMEM
-budgets do not apply on the card, and its XLA fallbacks compute the same
-values. All extraction outputs use the float32 ``[..., k, 2]`` pair
-layout of the step-output contract.
+Two routes, chosen by the ``use_mxu_fft`` knob as the JAX package
+chooses them. On the product route (the knob on, the default) static
+buckets extract through a kernel (``extract_fused``): kernel A when the
+bucket's channels share one window, kernel E when each has its own; the
+JAX package's TPU-only engagement gates and VMEM budgets do not apply on
+the card, and its XLA fallbacks compute the same values. On the FFT
+route (the knob off) a bucket's table is an :class:`FftTable`: gather,
+window, :func:`~fdc_tpu_torch.ops.fft.subband_ifft` (``torch.fft``,
+cuFFT on the card), gain, trim, as ``fdc_tpu`` computes it with
+``jnp.fft``; no kernel A or E runs. All extraction outputs use the
+float32 ``[..., k, 2]`` pair layout of the step-output contract.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -25,10 +32,13 @@ from fdc_tpu_torch.ops import extract_fused
 from fdc_tpu_torch.ops.fft import (
     _rr_idft_matrix,
     interleave_rows,
+    interp_subband_ifft,
     interp_subband_ifft_mxu,
+    subband_ifft,
 )
 
 __all__ = [
+    "FftTable",
     "apply_phase_pairs",
     "gather_slices",
     "shared_folded_matrix",
@@ -38,6 +48,7 @@ __all__ = [
     "extract_bucket_phased",
     "extract_bucket_measured",
     "extract_dynamic",
+    "measures_ride",
 ]
 
 
@@ -113,13 +124,45 @@ def bucket_folded(n: int, starts: np.ndarray, windows: np.ndarray,
     return static_folded_matrices(n, starts, windows, keep_from, gain)
 
 
+class FftTable(NamedTuple):
+    """A static bucket's table on the FFT route (``use_mxu_fft=False``):
+    the phase-0 windows [C, l] float32, the gain applied after the
+    transform, and the output samples dropped before ``keep_from`` (the
+    l // R overlap)."""
+
+    windows: torch.Tensor
+    gain: float
+    keep_from: int
+
+
+def _extract_fft(spectrum, starts, table: FftTable):
+    """[C, R, l - keep_from, 2]: ``fdc_tpu.ops.extract.extract_bucket``
+    with ``use_mxu=False``: gather, window, subband IFFT, gain, trim."""
+    l = table.windows.shape[-1]
+    z = gather_slices(spectrum, starts, l) * table.windows[:, None, :]
+    y = subband_ifft(z)
+    if table.gain != 1.0:
+        y = y * table.gain
+    return torch.view_as_real(y[..., table.keep_from:])
+
+
 def extract_bucket(spectrum, starts, folded):
     """[C, R, k, 2] phase-0 extraction of a static bucket through its
-    table from :func:`bucket_folded`: kernel A for a shared matrix,
-    kernel E for per-channel matrices."""
+    table: kernel A for a shared matrix from :func:`bucket_folded`,
+    kernel E for per-channel matrices, the FFT route for an
+    :class:`FftTable`."""
+    if isinstance(folded, FftTable):
+        return _extract_fft(spectrum, starts, folded)
     if folded.dim() == 2:
         return extract_fused.extract_shared(spectrum, starts, folded)
     return extract_fused.extract_static(spectrum, starts, folded)
+
+
+def measures_ride(folded) -> bool:
+    """Whether :func:`extract_bucket_measured` takes this table: a shared
+    matrix (kernel A computes the measures), or the FFT route (where it
+    returns no powers, as ``fdc_tpu``'s does)."""
+    return isinstance(folded, FftTable) or folded.dim() == 2
 
 
 def _row_phases(starts: torch.Tensor, b: int, relinvovl: int):
@@ -135,10 +178,11 @@ def extract_bucket_phased(spectrum, starts, folded, relinvovl: int):
 
     With a shared-matrix table and R in {1, 2, 4}, every phase factor is a
     quarter turn and kernel A applies it in its store epilogue
-    (``extract_fused.extract_shared_fold``, exact). R = 8 and per-channel
-    tables have no such fold: kernel A or E extracts and
-    :func:`apply_phase_pairs` rotates (cos/sin of the angles)."""
-    if relinvovl in (1, 2, 4) and folded.dim() == 2:
+    (``extract_fused.extract_shared_fold``, exact). R = 8, per-channel
+    tables and the FFT route have no such fold: the bucket is extracted
+    and :func:`apply_phase_pairs` rotates (cos/sin of the angles)."""
+    if (relinvovl in (1, 2, 4) and not isinstance(folded, FftTable)
+            and folded.dim() == 2):
         return extract_fused.extract_shared_fold(spectrum, starts, folded,
                                                  relinvovl)
     y = extract_bucket(spectrum, starts, folded)
@@ -153,7 +197,12 @@ def extract_bucket_measured(spectrum, starts, folded, relinvovl: int,
     ``powers = |spectrum|^2 @ power_masks`` [B, Cm] from the same kernel A
     launch (reference measures: lib/PowerActivationChannel_impl.cc:286-306,
     lib/SegmentDetection_impl.cc:178-193). ``extent``: the masks'
-    ``extract_fused.mask_extent``, the part kernel A multiplies."""
+    ``extract_fused.mask_extent``, the part kernel A multiplies. On the
+    FFT route (an :class:`FftTable`) the powers are None, as
+    ``fdc_tpu``'s are without the fused kernel: the caller measures."""
+    if isinstance(folded, FftTable):
+        return extract_bucket_phased(spectrum, starts, folded,
+                                     relinvovl), None
     y, powers = extract_fused.extract_shared(spectrum, starts, folded,
                                              power_masks, extent)
     y = apply_phase_pairs(y, _row_phases(starts, y.shape[1], relinvovl),
@@ -161,20 +210,24 @@ def extract_bucket_measured(spectrum, starts, folded, relinvovl: int,
     return y, powers
 
 
-def extract_dynamic(spectrum, starts, windows_pad, idft_mat):
+def extract_dynamic(spectrum, starts, windows_pad, idft_mat=None):
     """Variable-width slot extraction at one static width W.
 
     spectrum [B, N] complex64; starts [E] int32; windows_pad [E, W]
     float32 zero-padded past each slot's width; idft_mat [2W, 2W] the
-    interleaved-row unnormalized W-point IDFT (pairs columns). Returns
-    [E, B, W, 2] phase-0 interpolated outputs: sample m*q of a slot of
-    width w = W/q is its w-point unnormalized IFFT at m, without the
-    fftshift signs (see ``fdc_tpu.ops.fft.interp_subband_ifft``).
+    interleaved-row unnormalized W-point IDFT (pairs columns), or None
+    for the FFT route (:func:`~fdc_tpu_torch.ops.fft.interp_subband_ifft`).
+    Returns [E, B, W, 2] phase-0 interpolated outputs: sample m*q of a
+    slot of width w = W/q is its w-point unnormalized IFFT at m, without
+    the fftshift signs (see ``fdc_tpu.ops.fft.interp_subband_ifft``).
     """
     w_max = windows_pad.shape[-1]
     # zero-pad the tail so a W-long slice starting anywhere in [0, N)
     # never runs off the spectrum (the zero window drops those bins)
     spectrum = torch.nn.functional.pad(spectrum, (0, w_max))
-    slices = torch.view_as_real(gather_slices(spectrum, starts, w_max))
-    z = slices * windows_pad[:, None, :, None]  # [E, B, W, 2]
+    slices = gather_slices(spectrum, starts, w_max)
+    if idft_mat is None:
+        z = slices * windows_pad[:, None, :]
+        return torch.view_as_real(interp_subband_ifft(z, w_max))
+    z = torch.view_as_real(slices) * windows_pad[:, None, :, None]
     return interp_subband_ifft_mxu(z, idft_mat)

@@ -7,8 +7,12 @@ Port of the parts of ``fdc_tpu.ops.fft`` on the port's paths:
   routed as the JAX package routes it: ``use_mxu`` (the ``use_mxu_fft``
   knob, on by default) and N >= 256 take :func:`forward_spectrum_four_step`
   (the JAX package's four-step DFT-as-product form as its plain version;
-  kernel F on the card, a radix FFT, ``csrc/forward_fft.cu``), anything
-  else ``torch.fft``.
+  on the card kernel F, a radix FFT, ``csrc/forward_fft.cu``, up to
+  N = 16384, and its two-pass form, ``csrc/forward_fft_2pass.cu``,
+  above), anything else ``torch.fft``.
+- :func:`subband_ifft` / :func:`interp_subband_ifft`: the subband inverse
+  transforms of the FFT route (``use_mxu_fft=False``) on ``torch.fft``
+  (cuFFT on the card), as the JAX package computes them with ``jnp.fft``.
 - :func:`_rr_idft_matrix`: the numpy real-representation IDFT matrices
   (copied; the extraction kernels fold windows into them).
 - :func:`interp_subband_ifft_mxu`: the variable-width slot transform as
@@ -27,16 +31,24 @@ from fdc_tpu_torch import kernels
 
 __all__ = [
     "FOUR_STEP_MAX_N",
+    "TWO_PASS_MAX_N",
     "RADIX_PLANS",
+    "TWO_PASS_PLANS",
     "forward_spectrum",
     "forward_spectrum_four_step",
     "forward_spectrum_four_step_plain",
+    "forward_spectrum_two_pass",
+    "forward_spectrum_two_pass_plain",
+    "subband_ifft",
+    "interp_subband_ifft",
     "interleave_rows",
     "interp_subband_ifft_mxu",
 ]
 
 # kernel F keeps a block's N values in shared memory: 16384 at most
 FOUR_STEP_MAX_N = 16384
+# its two-pass form runs m1- and m2-point FFTs, each at most 16384 points
+TWO_PASS_MAX_N = 16384 * 16384
 
 # kernel F's schedule (csrc/forward_fft.cu runs the same): N -> (values a
 # thread holds, the radices of its Stockham passes in order)
@@ -49,6 +61,9 @@ RADIX_PLANS = {
     8192: (16, (16, 16, 16, 2)),
     16384: (32, (16, 16, 16, 4)),
 }
+# the two-pass form's column and row transforms (csrc/forward_fft_2pass.cu
+# runs the same): kernel F's plans, and 128 points for m2 at N = 32768
+TWO_PASS_PLANS = {128: (8, (8, 4, 4)), **RADIX_PLANS}
 
 
 def forward_spectrum(blocks: torch.Tensor, use_mxu: bool = True,
@@ -56,14 +71,15 @@ def forward_spectrum(blocks: torch.Tensor, use_mxu: bool = True,
     """[..., N] complex blocks -> [..., N] spectrum, DC at bin N/2, 1/N
     scaled (reference: python/FrequencyDomainChannelizer.py:206,214-216).
 
-    ``use_mxu`` with N >= 256 takes :func:`forward_spectrum_four_step`,
-    as ``fdc_tpu.ops.fft.forward_spectrum`` takes
+    ``use_mxu`` with N >= 256 takes :func:`forward_spectrum_four_step`
+    (kernel F) up to N = 16384 and :func:`forward_spectrum_two_pass`
+    above, as ``fdc_tpu.ops.fft.forward_spectrum`` takes
     ``forward_spectrum_mxu``; otherwise ``torch.fft``, shifted and
-    scaled. The default is the config's (``use_mxu_fft``), the only
-    setting the channelizer accepts. With ``out`` (a contiguous tensor of
-    the result's shape) the spectrum is written there and ``out`` is
-    returned."""
+    scaled. With ``out`` (a contiguous tensor of the result's shape) the
+    spectrum is written there and ``out`` is returned."""
     n = blocks.shape[-1]
+    if use_mxu and n > FOUR_STEP_MAX_N:
+        return forward_spectrum_two_pass(blocks, out=out)
     if use_mxu and n >= 256:
         return forward_spectrum_four_step(blocks, out=out)
     spec = torch.fft.fftshift(torch.fft.fft(blocks, dim=-1), dim=-1)
@@ -153,6 +169,26 @@ def forward_spectrum_four_step_plain(blocks: torch.Tensor,
     return _into(x_mat.transpose(-1, -2).reshape(lead + (n,)), out)
 
 
+def _check_card_fft(what: str, blocks: torch.Tensor, lo: int, hi: int,
+                    out: torch.Tensor | None) -> torch.Tensor:
+    """Check a card FFT's operands; returns ``out`` or a new tensor."""
+    n = blocks.shape[-1]
+    if blocks.dtype != torch.complex64:
+        raise TypeError(f"{what}: complex64 blocks expected")
+    if n & (n - 1) or not lo <= n <= hi:
+        raise ValueError(f"{what}: N must be a power of 2 in [{lo}, {hi}], "
+                         f"got {n}")
+    if not blocks.is_contiguous():
+        raise ValueError(f"{what}: contiguous blocks expected")
+    if out is None:
+        return torch.empty_like(blocks)
+    if (out.shape != blocks.shape or out.dtype != blocks.dtype
+            or out.device != blocks.device or not out.is_contiguous()):
+        raise ValueError(f"{what}: out must be a contiguous complex64 "
+                         "tensor of the blocks' shape on their device")
+    return out
+
+
 def forward_spectrum_four_step(blocks: torch.Tensor,
                                out: torch.Tensor | None = None
                                ) -> torch.Tensor:
@@ -165,22 +201,8 @@ def forward_spectrum_four_step(blocks: torch.Tensor,
     if blocks.device.type == "cpu":
         return forward_spectrum_four_step_plain(blocks, out)
     n = blocks.shape[-1]
-    if blocks.dtype != torch.complex64:
-        raise TypeError("forward_spectrum_four_step: complex64 blocks "
-                        "expected")
-    if n & (n - 1) or not 256 <= n <= FOUR_STEP_MAX_N:
-        raise ValueError(f"forward_spectrum_four_step: N must be a power of "
-                         f"2 in [256, {FOUR_STEP_MAX_N}], got {n}")
-    if not blocks.is_contiguous():
-        raise ValueError("forward_spectrum_four_step: contiguous blocks "
-                         "expected")
-    if out is None:
-        out = torch.empty_like(blocks)
-    elif (out.shape != blocks.shape or out.dtype != blocks.dtype
-          or out.device != blocks.device or not out.is_contiguous()):
-        raise ValueError("forward_spectrum_four_step: out must be a "
-                         "contiguous complex64 tensor of the blocks' shape "
-                         "on their device")
+    out = _check_card_fft("forward_spectrum_four_step", blocks, 256,
+                          FOUR_STEP_MAX_N, out)
     tw = _radix_twiddles(n, blocks.device)
     rows = blocks.numel() // n
     if rows:
@@ -193,6 +215,75 @@ def forward_spectrum_four_step(blocks: torch.Tensor,
 
 
 forward_spectrum_four_step.launches = 0
+
+
+def forward_spectrum_two_pass(blocks: torch.Tensor,
+                              out: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """Kernel F's two-pass form (``csrc/forward_fft_2pass.cu``) on CUDA
+    [..., N] complex64 blocks, N a power of two in (16384, 2^28]: the
+    four-step split N = m1 * m2 of :func:`_four_step_matrices`, pass 1 the
+    m1-point FFTs of the columns into a scratch tensor, twiddled, pass 2
+    the m2-point FFTs of the rows into ``out``, shifted and scaled.
+    Its plain version is :func:`forward_spectrum_four_step_plain`, which
+    CPU tensors take. One count a call (its two launches)."""
+    if blocks.device.type == "cpu":
+        return forward_spectrum_four_step_plain(blocks, out)
+    n = blocks.shape[-1]
+    out = _check_card_fft("forward_spectrum_two_pass", blocks,
+                          2 * FOUR_STEP_MAX_N, TWO_PASS_MAX_N, out)
+    m1, m2 = _two_pass_split(n)
+    rows = blocks.numel() // n
+    if rows:
+        dev = blocks.device
+        scratch = torch.empty_like(blocks)
+        tw1, tw2, twn = (_radix_twiddles(m, dev) for m in (m1, m2, n))
+        kernels.launch(
+            "fdc_forward_fft_2pass", dev,
+            blocks.data_ptr(), rows, m1, m2, tw1.data_ptr(), tw2.data_ptr(),
+            twn.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        )
+        forward_spectrum_two_pass.launches += 1
+    return out
+
+
+forward_spectrum_two_pass.launches = 0
+# its plain version is the four-step product form's
+forward_spectrum_two_pass_plain = forward_spectrum_four_step_plain
+
+
+def _two_pass_split(n: int):
+    """(m1, m2) of the four-step split: m1 = 2^ceil(log2(N)/2)."""
+    log2n = n.bit_length() - 1
+    m1 = 1 << ((log2n + 1) // 2)
+    return m1, n // m1
+
+
+@functools.lru_cache(maxsize=None)
+def _alternating_signs(n: int, device: torch.device) -> torch.Tensor:
+    """(-1)^m, m < n, float32 on ``device``: made once a device (a copy
+    from the host each call would stall the stream's host side)."""
+    return torch.from_numpy(
+        np.where(np.arange(n) % 2 == 0, 1.0, -1.0).astype(np.float32)
+    ).to(device)
+
+
+def subband_ifft(z: torch.Tensor) -> torch.Tensor:
+    """Unnormalized IFFT of the fftshifted slice, ``l * ifft(z) * (-1)^m``
+    over the last axis (``fdc_tpu.ops.fft.subband_ifft``, reference:
+    lib/SegmentDetection_impl.cc:413-416,649-657); z [..., l] complex64,
+    l even."""
+    l = z.shape[-1]
+    y = torch.fft.ifft(z, dim=-1)
+    return y * (_alternating_signs(l, z.device) * l)
+
+
+def interp_subband_ifft(z_pad: torch.Tensor, w_max: int) -> torch.Tensor:
+    """``w_max * ifft(z_pad)`` over the last axis
+    (``fdc_tpu.ops.fft.interp_subband_ifft``): sample m*q of a slot of
+    width w = W/q, zero-padded to W, is its w-point unnormalized IFFT at
+    m, without the fftshift signs."""
+    return torch.fft.ifft(z_pad, dim=-1) * float(w_max)
 
 
 @functools.lru_cache(maxsize=None)

@@ -145,9 +145,13 @@ class ShardedChannelizer(Lanes, FrequencyDomainChannelizer):
         fused = {}
         for w, (name, tb) in base._fused.items():
             n_tp = len(tb.channel_ids)
-            for key in (f"{name}_starts", f"{name}_folded"):
-                t = base._buffers[key]
-                if t.dim() != 2:  # a shared matrix is every rank's
+            for key in (f"{name}_starts", f"{name}_folded",
+                        f"{name}_windows"):
+                t = base._buffers.get(key)
+                # a shared matrix is every rank's (the FFT route's
+                # windows are a row each)
+                if t is not None and not (key.endswith("_folded")
+                                          and t.dim() == 2):
                     rep._buffers[key] = torch.cat(
                         [split_rows(t[:n_tp], nc)[c],
                          split_rows(t[n_tp:], nc)[c]])

@@ -421,3 +421,36 @@ def test_run_waterfall(files):
         "--waterfall", str(png), "--waterfall-colorscheme", "2",
         "--waterfall-db", "-80", "10", "--waterfall-tagmode", "id"))
     assert png.exists() == have_matplotlib()
+
+
+@pytest.mark.parametrize("change,blocks", [
+    (dict(use_mxu_fft=False), N_BLOCKS),
+    # the slot width capped as the flagship's: the product route's slot
+    # transform is a dense [2 w_cap, 2 w_cap] matrix in both packages
+    (dict(blocksize=32768, batch_blocks=2, max_extract_width=512), 7),
+], ids=["fft-route", "blocksize-32768"])
+def test_config_knobs_run_as_fdc_tpus(tmp_path, change, blocks):
+    """A config file with ``use_mxu_fft: false`` or ``blocksize: 32768``
+    runs through ``python -m fdc_tpu_torch run`` as through fdc_tpu's."""
+    from fdc_tpu_torch.config import ChannelizerConfig
+
+    cfg = ChannelizerConfig(
+        blocksize=1024, relinvovl=4,
+        throughput_channels=((0.12, 0.05),),
+        activity_controlled_channels=((0.22, 0.1),),
+        activity_detection_segments=((0.30, 0.42),),
+        batch_blocks=16, max_slots=8,
+    ).replace(**change)
+    (tmp_path / "cfg.json").write_text(cfg.to_json())
+    rng = np.random.default_rng(8)
+    n = blocks * cfg.inplen
+    t = np.arange(n)
+    gate = np.zeros(n)
+    gate[n // 3: 2 * n // 3] = 1.0
+    x = (0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+         + 0.9 * np.exp(2j * np.pi * 0.12 * t)
+         + gate * (0.8 * np.exp(2j * np.pi * 0.22 * t)
+                   + 0.9 * np.exp(2j * np.pi * 0.35 * t)))
+    x[:-333].astype(np.complex64).tofile(tmp_path / "cap.c64")
+    got = outputs(port("run", tmp_path, "port"))
+    assert_same_outputs(got, outputs(jax("run", tmp_path, "jax")))

@@ -4,7 +4,8 @@
 loads JAX), so the host modules that need no JAX are copied:
 ``config.py``, ``ops/windows.py``, ``utils/events.py``,
 ``utils/logging.py``, ``runtime/emission.py``, ``runtime/stream.py`` and
-``utils/waterfall.py`` whole, the native runtime's C++ sources
+``utils/waterfall.py`` whole, ``utils/resample.py``'s filter design
+(``design_kaiser_lowpass``), the native runtime's C++ sources
 (``runtime/native/ring.cc``, ``emission.cc``) verbatim, and its loader
 (``runtime/native/__init__.py``) apart from the lines that build the
 library, and the cross-process pipeline's codec, framing and worker
@@ -113,6 +114,16 @@ def test_hostpipe_wire_definitions_equal_their_source(name):
              if m.split(".")[0] != "jax"}
     assert plain <= imports["from "]
     assert imports["from queue"] == src_imports["from queue"]
+
+
+def test_kaiser_lowpass_equals_its_source():
+    """``design_kaiser_lowpass`` (numpy) is fdc_tpu's, definition for
+    definition; the resampler around it is the port's own (conv1d)."""
+    rel = "utils/resample.py"
+    _, defs, _ = top_level(ROOT / "fdc_tpu_torch" / rel)
+    _, src_defs, _ = top_level(ROOT / "fdc_tpu" / rel)
+    assert defs["design_kaiser_lowpass"] == src_defs["design_kaiser_lowpass"]
+    assert defs["__all__"] == src_defs["__all__"]
 
 
 @pytest.mark.parametrize("name", ["ring.cc", "emission.cc"])

@@ -10,9 +10,9 @@
 - every probe's plain version against the numpy expectation its probe
   file states (``tools/pallas_fft_micro.py``, ``pallas_fft_micro2.py``),
   1e-5 of the max (fp32 against float64);
-- ``cuda``-marked: kernels F and P against their plain versions on the
-  card, max abs err <= 1e-5 of each result's max (another summation
-  order).
+- ``cuda``-marked: kernels F (and its two-pass form at N = 32768 ...
+  131072) and P against their plain versions on the card, max abs err
+  <= 1e-5 of each result's max (another summation order).
 
 The JAX comparisons import JAX inside the tests and run it on its CPU
 backend, so the file also runs on the card's machine, with or without
@@ -248,11 +248,43 @@ def test_probe_kernel_matches_plain(name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [32768, 65536, 131072])
+def test_two_pass_kernel_matches_plain(n):
+    """Kernel F's two-pass form against its plain version (the four-step
+    product form) and float64 numpy, through the route's entry point."""
+    dev = cuda_device()
+    x = blocks(n, 5, salt=5)
+    before = fft.forward_spectrum_two_pass.launches
+    got = fft.forward_spectrum(torch.from_numpy(x).to(dev))
+    assert fft.forward_spectrum_two_pass.launches == before + 1
+    ref = fft.forward_spectrum_four_step_plain(torch.from_numpy(x).to(dev))
+    assert_close_to_max(got.cpu().numpy(), ref.cpu().numpy(), 1e-5, f"N={n}")
+    want = np.fft.fftshift(np.fft.fft(x.astype(np.complex128), axis=-1),
+                           axes=-1) / n
+    assert rel_rms(got.cpu().numpy(), want) <= REL_RMS
+
+
+@pytest.mark.cuda
+def test_two_pass_kernel_writes_into_spec_ext():
+    dev = cuda_device()
+    x = torch.from_numpy(blocks(32768, 16, salt=6)).to(dev)
+    ext = torch.full((17, 32768), 3 + 4j, dtype=torch.complex64, device=dev)
+    got = fft.forward_spectrum(x, out=ext[1:])
+    assert got.data_ptr() == ext[1:].data_ptr()
+    assert bool((ext[0] == 3 + 4j).all())
+    assert torch.equal(ext[1:], fft.forward_spectrum_two_pass(x))
+
+
+@pytest.mark.cuda
 def test_fft_wrappers_refuse_bad_cuda_inputs():
     dev = cuda_device()
     with pytest.raises(ValueError):
         fft.forward_spectrum_four_step(
             torch.zeros(2, 32768, dtype=torch.complex64, device=dev))
+    for n in (16384, 3 * 16384):  # kernel F's, not a power of two
+        with pytest.raises(ValueError):
+            fft.forward_spectrum_two_pass(
+                torch.zeros(2, n, dtype=torch.complex64, device=dev))
     with pytest.raises(TypeError):
         fft.forward_spectrum_four_step(
             torch.zeros(2, 1024, dtype=torch.complex128, device=dev))

@@ -208,11 +208,13 @@ def test_unequal_windows_take_per_channel_tables():
     assert_close_to_max(got.numpy(), np.asarray(ref))
 
 
-def test_extract_slots_matches_jax():
-    """Variable-width slot extraction (one fp32 matmul) == fdc_tpu's
-    extract_slots on random slot geometry."""
+@pytest.mark.parametrize("use_mxu", [True, False])
+def test_extract_slots_matches_jax(use_mxu):
+    """Variable-width slot extraction (one fp32 matmul, or torch.fft on
+    the FFT route) == fdc_tpu's extract_slots on random slot geometry."""
     args = (0, 1024, 4, 0.55, 0.8, 6.0, 0.02, 0.2)
-    kw = dict(max_slots=8, max_extract_width=128, extract_budget=5)
+    kw = dict(max_slots=8, max_extract_width=128, extract_budget=5,
+              use_mxu=use_mxu)
     jsd, tsd = JaxSD(*args, **kw), SegmentDetector(*args, **kw)
     rng = np.random.default_rng(4)
     spec = cspec(rng, 9, 1024)

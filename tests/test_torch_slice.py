@@ -274,17 +274,6 @@ def test_convert_roundtrip(pair):
         assert fresh[k].dtype == v.dtype, k
 
 
-@pytest.mark.parametrize("overrides", [
-    dict(use_mxu_fft=False),
-    # the four-step forward FFT's kernel keeps a block in shared memory
-    dict(blocksize=32768),
-], ids=["fft-lowering", "four-step-over-16384"])
-def test_refuses_unported(overrides):
-    with pytest.raises(NotImplementedError):
-        FrequencyDomainChannelizer(_flagship(**{**SMALL, **overrides}),
-                                   device="cpu")
-
-
 def test_construction_contract():
     cfg = _flagship(**SMALL)
     # the card is the default device, with no CPU fallback

@@ -52,7 +52,8 @@ def make_pair():
     kw = dict(channel_deactivation_delay=1, max_slots=16, max_candidates=8,
               max_extract_width=512, extract_budget=3,
               extract_width_split=64, extract_budget_narrow=4)
-    return SegmentDetector(*args, **kw), JaxSD(*args, use_mxu=True, **kw)
+    return (SegmentDetector(*args, use_mxu=True, **kw),
+            JaxSD(*args, use_mxu=True, **kw))
 
 
 @pytest.mark.parametrize("occupancy,max_wlog2", [

@@ -356,3 +356,37 @@ def test_vcm_construction_contract():
     with pytest.raises(ValueError, match="Blocklen"):
         ActivityDetectionChannelizer(**{**kw, "blocklen": 500},
                                      device="cpu")
+
+
+def test_vcm_slots_take_the_fft_route(monkeypatch):
+    """fdc_tpu's vcm detector builds its segments with SegmentDetector's
+    default use_mxu=False, so its slots extract through jnp.fft: the
+    port's take torch.fft (``interp_subband_ifft``, counted) and never
+    the slot product (``interp_subband_ifft_mxu``), and its events equal
+    fdc_tpu's."""
+    from fdc_tpu_torch.ops import extract
+
+    calls = {"fft": 0}
+    fft_route = extract.interp_subband_ifft
+
+    def counted(*a, **k):
+        calls["fft"] += 1
+        return fft_route(*a, **k)
+
+    def refuse(*a, **k):
+        raise AssertionError("the vcm detector called the slot product")
+
+    monkeypatch.setattr(extract, "interp_subband_ifft", counted)
+    monkeypatch.setattr(extract, "interp_subband_ifft_mxu", refuse)
+    kw, maxblocks, (nb, carriers) = SCENES["golden"]
+    spectra = make_spectra(nb, kw["blocklen"], kw["relinvovl"], carriers)
+    jr, tr = runners(kw, maxblocks)
+    assert not any(sd.use_mxu for sd in tr.adc.segments)
+    ej, et = [], []
+    for lo in range(0, nb, 8):
+        ej += jr.process_spectra(spectra[lo:lo + 8])
+        et += tr.process_spectra(spectra[lo:lo + 8])
+    assert len(ej) >= 2
+    assert_events_match(et, ej)
+    # one slot extraction a segment a batch
+    assert calls["fft"] == len(kw["segments"]) * (-(-nb // 8))
