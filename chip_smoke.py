@@ -122,6 +122,24 @@ with its wall seconds:
    route and on the FFT route, in turns; ``utils.profiling``
    (``time_scanned_stats``, ``measure_samples_per_sec``) on the flagship
    beside its step time; ``utils.resample`` on the card against the CPU.
+11. the compiled step (``compiled_phase``): every path, and the
+   flagship at B=510 (not a multiple of R = 4: the throughput phase
+   comes from ``t0``, a device scalar in the graph), through process() +
+   flush() with its step replayed as a CUDA graph (as phase 3 runs it)
+   and with the class's eager opt-out, in turns: a new channelizer
+   (cold), a new stream after a reset (warm) and the capture again in
+   that stream (steady). Results equal (and whether bit-equal), launch
+   counts equal (and equal to phase 3's), two steps key by key, the
+   graphed step's time by CUDA events beside the eager step's and both
+   device busy times, the first call's warm-up and capture, and the
+   host walls.
+
+``process``, ``process_spectra`` and ``flush`` replay the step as a CUDA
+graph (``fdc_tpu_torch.runtime.compiled``), and a replay runs no Python:
+a wrapper swapped in by module attribute (``swapped``) or a method
+patched on the channelizer takes effect only in a graph captured after
+the swap. So the phases that swap wrappers drive ``_device_step``, the
+eager step, and ``plan_tally`` drops the graphs around its run.
 
 In the kernel summary JSON, ``ms``, ``plain_ms``, ``bound_ms`` and
 ``library_ms`` are sums over the kernel's phase-2 cases (for
@@ -451,6 +469,8 @@ class VcmPath:
         self.segments = self.adc.segments
         self.batch_samples = cfg.batch_blocks * cfg.inplen
         self._steps = self.adc.make_runner()  # its step functions only
+        self.compile_step = True  # the runners' (False: eager)
+        self.steps = 0  # batches through stream()
 
     def stream(self, x):
         """A fresh runner over the capture: the tail zero-padded to a whole
@@ -460,6 +480,7 @@ class VcmPath:
 
         cfg, bs, n = self.config, self.batch_samples, len(x)
         runner = self.adc.make_runner(maxblocks=cfg.act_det_maxblocks)
+        runner.compile_step = self.compile_step
         n_real = -(-n // bs)
         rounds = finalize_rounds_bound(self.segments, cfg.batch_blocks)
         x = np.concatenate([x, np.zeros((n_real + rounds) * bs - n,
@@ -469,6 +490,7 @@ class VcmPath:
             if i >= n_real and not runner.has_open_slots():
                 break
             events += runner.process_spectra(spec)
+            self.steps += 1
         return events, -(-n // cfg.inplen)
 
     def _device_init(self):
@@ -1328,46 +1350,67 @@ def event_kinds(events):
     return kinds, fins
 
 
+def release_graphs(fdc):
+    """Drop a channelizer's captured step graphs (the vcm path's runners
+    are made anew each stream): the next compiled call captures the step
+    as its functions are then, patched or not."""
+    for name in ("_jit_step", "_jit_step_spectra"):
+        if hasattr(fdc, name):
+            getattr(fdc, name).release()
+
+
 @contextlib.contextmanager
 def plan_tally(fdc):
     """Count, over the steps run inside the block, the real (not
     sentinel) rows the detection segments' plans ship in the narrow and
     the wide bucket, and the largest ``ext_overflow``; on a split
     segment also the slots its cut reconciliation killed and the
-    candidates it suppressed."""
-    tally = {"narrow": 0, "wide": 0, "overflow": 0}
+    candidates it suppressed. The counts are device tensors the patched
+    functions add to, so a compiled step captures the additions and
+    every replay makes them (the graphs are dropped on entry and exit,
+    so they are captured with the patches and do not keep them); the
+    dict is filled when the block ends."""
+    import torch
+
+    tally = {}
     segs = list(getattr(fdc, "segments", ()))
     split = [segs[i] for i in getattr(fdc, "_split_neighbors", ())]
+    keys = ["narrow", "wide", "overflow"]
     if split:
-        tally.update(killed=0, suppressed=0)
+        keys += ["killed", "suppressed"]
+    dev = {k: torch.zeros((), dtype=torch.int64, device=fdc.device)
+           for k in keys}
     for sd in split:
         def reconcile(state, packed, kill_from, suppress_from, sd=sd,
                       orig=sd.reconcile_split):
             st, pk, killed = orig(state, packed, kill_from, suppress_from)
             k = sd.k_pack
-            tally["killed"] += int(killed.sum())
-            tally["suppressed"] += int((packed[:, 2 * k:3 * k] != 0).sum()
-                                       - (pk[:, 2 * k:3 * k] != 0).sum())
+            dev["killed"] += killed.sum()
+            dev["suppressed"] += ((packed[:, 2 * k:3 * k] != 0).sum()
+                                  - (pk[:, 2 * k:3 * k] != 0).sum())
             return st, pk, killed
         sd.reconcile_split = reconcile
     for sd in segs:
         def plan(seg_state, flags, sd=sd, orig=sd.plan_outputs):
             so = orig(seg_state, flags)
             s = sd.max_slots
-            tally["wide"] += int((so["slot_ids"] < s).sum())
+            dev["wide"] += (so["slot_ids"] < s).sum()
             if "slot_ids_narrow" in so:
-                tally["narrow"] += int((so["slot_ids_narrow"] < s).sum())
-            tally["overflow"] = max(tally["overflow"],
-                                    int(so["ext_overflow"]))
+                dev["narrow"] += (so["slot_ids_narrow"] < s).sum()
+            dev["overflow"].copy_(torch.maximum(
+                dev["overflow"], so["ext_overflow"].to(torch.int64)))
             return so
         sd.plan_outputs = plan
+    release_graphs(fdc)
     try:
         yield tally
     finally:
+        release_graphs(fdc)
         for sd in segs:
             del sd.plan_outputs
         for sd in split:
             del sd.reconcile_split
+        tally.update((k, int(v)) for k, v in dev.items())
 
 
 def run_path(name, fdc, x, expect, tag="phase 3"):
@@ -2515,20 +2558,27 @@ def two_pass_cases():
 
 @contextlib.contextmanager
 def counted_steps(fdc):
-    """Count the steps a path runs inside the block: the channelizer's
-    ``_device_step`` calls, or the vcm detector's ``step`` calls."""
-    obj, attr = ((fdc.adc, "step") if isinstance(fdc, VcmPath)
-                 else (fdc, "_device_step"))
-    orig, n = getattr(obj, attr), [0]
+    """Count the steps a path runs inside the block, on the host (a
+    replayed step runs no Python): the channelizer's outputs consumed, or
+    the vcm detector's batches."""
+    n = [0]
+    if isinstance(fdc, VcmPath):
+        n0 = fdc.steps
+        try:
+            yield n
+        finally:
+            n[0] = fdc.steps - n0
+        return
+    orig = fdc._consume_outputs
 
-    def step(*a, **kw):
+    def consume(*a, **kw):
         n[0] += 1
         return orig(*a, **kw)
-    setattr(obj, attr, step)
+    fdc._consume_outputs = consume
     try:
         yield n
     finally:
-        delattr(obj, attr)
+        del fdc._consume_outputs
 
 
 def product_slots(adc, on):
@@ -2758,6 +2808,197 @@ def utilities_phase(paths, card):
             f"host-to-card copy included {card}")
 
 
+# -- phase 11: the compiled step -------------------------------------------
+
+
+def bit_equal_runs(got, ref):
+    """Whether two runs' events, streams and segment powers are equal bit
+    for bit (the kernels are deterministic: a replayed graph launches the
+    eager step's kernels on the same inputs)."""
+    (ev, streams, powers), (ev_r, streams_r, powers_r) = (
+        run_outputs(got), run_outputs(ref))
+    return (len(ev) == len(ev_r)
+            and all(np.array_equal(a.data, b.data) for a, b in zip(ev, ev_r))
+            and all(np.array_equal(a, b) for a, b in
+                    zip(streams + powers, streams_r + powers_r)))
+
+
+def step_fns(fdc, x):
+    """(init, graphed step, eager step) of a path on its first batch, each
+    step mapping a carry to (carry, outputs): the channelizer's
+    ``_jit_step`` against its ``_device_step``; the vcm path's runner
+    (spectra in, made on the card by the port's front end)."""
+    import torch
+
+    if isinstance(fdc, VcmPath):
+        runner = fdc.adc.make_runner()
+        spec = torch.from_numpy(card_spectra(
+            fdc.config, x[:fdc.batch_samples], fdc.device)[0]).to(fdc.device)
+        return (runner._device_init,
+                lambda c, t0: runner._jit_step(c, spec),
+                lambda c, t0: runner._device_step(c, spec))
+    bs = fdc.batch_samples
+    xs = [torch.from_numpy(x[i * bs:(i + 1) * bs]).to(fdc.device)
+          for i in range(2)]
+    bb = fdc.config.batch_blocks
+    return (fdc._device_init,
+            lambda c, t0: fdc._jit_step(c, xs[t0 // bb % 2], t0),
+            lambda c, t0: fdc._device_step(c, xs[t0 // bb % 2], t0))
+
+
+def step_pair(fdc, x):
+    """Two steps of the path's first batches (the second from a busy
+    carry, at t0 = B) through the compiled step and the eager one from
+    the same carries: outputs and new carries key by key; returns the
+    largest difference (0: bit-equal)."""
+    init, graphed, eager = step_fns(fdc, x)
+    bb = fdc.config.batch_blocks
+    cg = ce = init()
+    worst = 0.0
+    for i in range(2):
+        cg, og = graphed(cg, i * bb)
+        ce, oe = eager(ce, i * bb)
+        for a, b, what in ((og, oe, "outputs"), (cg, ce, "carry")):
+            compare_outputs(a, b, f"step {i} {what}, graphed vs eager")
+            fa, fb = flatten(a), flatten(b)
+            worst = max([worst] + [float(np.abs(
+                fa[k].astype(np.complex128) - fb[k]).max())
+                for k in fa if fa[k].size])
+    return worst
+
+
+def compiled_times(fdc, x, iters=20):
+    """The path's step by CUDA events over ``iters`` steps, the carry fed
+    forward: (graphed ms, eager ms, the eager step's device busy ms with
+    the stream held, the graphed step's, the host ms of the graphed
+    step's first call: warm-up and capture)."""
+    import statistics
+
+    import torch
+
+    init, graphed, eager = step_fns(fdc, x)
+    release_graphs(fdc)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    graphed(init(), 0)
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t) * 1e3
+    out = []
+    for fn in (graphed, eager):
+        carry = [init()]
+
+        def step(fn=fn, carry=carry):
+            carry[0], _ = fn(carry[0], 0)
+        out.append((step, cuda_time(step, iters)))
+    (g_step, g_ms), (e_step, e_ms) = out
+    held = []
+    for step, ms in ((e_step, e_ms), (g_step, g_ms)):
+        h = [v for v in (held_time(step, 3 * ms + 5.0) for _ in range(3))
+             if v is not None]
+        held.append(statistics.median(h) if h else None)
+    return g_ms, e_ms, held[0], held[1], capture_ms
+
+
+def compiled_path(name, p, card):
+    """Phase 11 for one path, through a graphed and an eager channelizer
+    in turns: process() + flush() of the capture ("cold": a new
+    channelizer, the graphed one capturing its step), equal results
+    (and whether bit-equal) and launch counts, both equal to phase 3's;
+    then a new stream on each ("warm": after a reset, which drops the
+    graphs, so the graphed one captures again) and the capture again in
+    the same stream ("steady": the graph exists), equal results; two
+    steps key by key; the step times. The vcm path has no reset: each
+    stream is a new runner, as the vcm command's, and no steady run."""
+    fdcs = {"graphed": p["make"]("cuda"), "eager": p["make"]("cuda")}
+    fdcs["eager"].compile_step = False
+    vcm = isinstance(fdcs["eager"], VcmPath)
+    for fdc in fdcs.values():
+        if not vcm:
+            restart(fdc)  # records the emitters' state at construction
+    runs, walls, counts = {}, {}, {}
+
+    def part(mode, what, fn):
+        res, walls[mode, what], got = timed(fn)
+        runs[mode, what] = list(res)
+        counts[mode, what] = got
+
+    order = (("eager", "graphed"), ("graphed", "eager"))
+    for what, modes in zip(("cold", "warm"), order):
+        for mode in modes:
+            fdc = fdcs[mode]
+            if vcm:
+                part(mode, what, lambda: drive(fdc, p["x"]))
+            elif what == "cold":
+                part(mode, what, lambda: drive(fdc, p["x"]))
+            else:
+                restart(fdc)
+                part(mode, "warm", lambda: [fdc.process(p["x"])])
+                part(mode, "steady", lambda: [fdc.process(p["x"]),
+                                              fdc.flush()])
+    got = counts["graphed", "cold"]
+    assert got == counts["eager", "cold"], (name, got, counts)
+    for k in p["expect"]:
+        assert got.get(k, 0) > 0, f"{k} was not launched on {name}"
+    n_ev, err = compare_runs(f"{name} graphed against eager",
+                             runs["graphed", "cold"], runs["eager", "cold"])
+    bits = bit_equal_runs(runs["graphed", "cold"], runs["eager", "cold"])
+    parts = ("warm",) if vcm else ("warm", "steady")
+    for what in parts:
+        compare_runs(f"{name} {what} graphed against eager",
+                     runs["graphed", what], runs["eager", what])
+        bits = bits and bit_equal_runs(runs["graphed", what],
+                                       runs["eager", what])
+    if "ref" in p:
+        compare_runs(f"{name} graphed against phase 3",
+                     runs["graphed", "cold"], p["ref"])
+        assert got == {k: v for k, v in p["launches"].items() if v}, (
+            name, got, p["launches"])
+    step_err = step_pair(fdcs["graphed"], p["x"])
+    g_ms, e_ms, e_busy, g_busy, cap = compiled_times(fdcs["graphed"],
+                                                     p["x"])
+    what = "runner step (spectra in)" if vcm else "step"
+    ratio = "" if e_busy is None else f", {g_ms / e_busy:.3f}x the busy time"
+
+    def wall(mode):
+        return " / ".join(f"{walls[mode, w]:.4f}"
+                          for w in ("cold", "warm") + parts[1:])
+    log(f"phase 11: {name}: graphed process() + flush() == eager: {n_ev} "
+        f"events, bit-equal {bits} (max abs err {err:.3g}), launches "
+        f"{got} equal; 2 steps graphed == eager key by key (max abs "
+        f"diff {step_err:.3g}); {what} B={fdcs['graphed'].config.batch_blocks}"
+        f" graphed {g_ms:.4f} ms against eager {e_ms:.4f} ms (device busy "
+        f"with the stream held: eager {fmt_ms(e_busy)}, graphed "
+        f"{fmt_ms(g_busy)}{ratio}); first call (warm-up + capture) "
+        f"{cap:.1f} ms; walls (host clock) cold / warm"
+        f"{'' if vcm else ' / steady'}: graphed {wall('graphed')} s, eager "
+        f"{wall('eager')} s {card}")
+    return runs["graphed", "cold"], fdcs["graphed"]
+
+
+def compiled_phase(paths, card):
+    """Phase 11: every path's process() + flush() through its compiled
+    step (one CUDA graph a batch shape) against the eager step, and the
+    flagship at B = 510, not a multiple of R = 4 (t0 mod R varies, so the
+    throughput phase comes from t0, a device scalar in the graph)."""
+    import torch
+
+    from fdc_tpu_torch.flagship import _flagship
+
+    for name, p in paths.items():
+        compiled_path(name, p, card)
+        torch.cuda.empty_cache()
+    cfg = _flagship(batch_blocks=510)
+    bs = cfg.batch_blocks * cfg.inplen
+    p = dict(make=channelizer(cfg), expect=paths["flagship"]["expect"],
+             x=scripted_capture(cfg, N_BATCHES * bs + 7 * cfg.inplen
+                                + 1234))
+    res, fdc = compiled_path("flagship B=510", p, card)
+    chan, amp, snr = tone_check(res[0], fdc, TONE_BIN)
+    assert abs(amp - 1.0) < 0.05 and snr > 25.0, (amp, snr)
+    log(f"phase 11: flagship B=510 tone in channel {chan}: amp {amp:.4f}, "
+        f"SNR {snr:.1f} dB")
+
+
 def main() -> int:
     import torch
 
@@ -2854,7 +3095,7 @@ def main() -> int:
     for name, p in paths.items():
         res, kinds, chans, got, tally, fins, fin = run_path(
             name, p["fdc"], p["x"], p["expect"])
-        p["ref"] = [res, fin]
+        p["ref"], p["launches"] = [res, fin], got
         for k, n in got.items():
             launches[k] += n
         check_path(name, p, res, kinds, chans, tally, fins)
@@ -2917,6 +3158,10 @@ def main() -> int:
     # -- phase 10: the FFT route, blocksizes above 16384, the utilities ----
     large_n_phase(paths, card, summary, launches)
     phase_done(10)
+
+    # -- phase 11: the compiled step against the eager one ----------------
+    compiled_phase(paths, card)
+    phase_done(11)
     log(f"total: {time.perf_counter() - t_run:.1f} s wall")
 
     rows = []

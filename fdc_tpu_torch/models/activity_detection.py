@@ -13,7 +13,9 @@ emitters, native or Python). All segments' lifecycle scans run in one
 kernel C launch (``scan_slots_multi``); their candidates go through
 kernel B. Their slots extract through the FFT route (``torch.fft``), as
 ``fdc_tpu``'s vcm detector, whose segments keep SegmentDetector's
-default ``use_mxu=False``.
+default ``use_mxu=False``. The runner's step runs compiled, as
+``fdc_tpu`` jits it (``runtime.compiled.CompiledStep``: one CUDA graph a
+spectrum-batch size on the card, as jit traces one a shape).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from fdc_tpu_torch.models.segment_detection import (
     scan_slots_multi,
 )
 from fdc_tpu_torch.ops import detect
+from fdc_tpu_torch.runtime.compiled import CompiledStep, install_carry
 from fdc_tpu_torch.utils.logging import make_logger
 
 __all__ = ["ActivityDetectionChannelizer", "ActivityDetectionRunner"]
@@ -142,7 +145,11 @@ class ActivityDetectionRunner:
     reference block's vector input and msgout port (reference:
     lib/activity_detection_channelizer_vcm_impl.cc:542-576). The carry is
     ``{"prev_spec": [N] complex64, "segs": [slot tables]}``, the JAX
-    runner's (``fdc_tpu_torch.convert`` moves it between the two)."""
+    runner's (``fdc_tpu_torch.convert`` moves it between the two); the
+    step runs compiled (``_jit_step``) unless ``compile_step`` is set
+    False."""
+
+    compile_step = True
 
     def __init__(self, adc: ActivityDetectionChannelizer, maxblocks: int,
                  file_sink, msg_output: bool, native_emission="auto"):
@@ -156,6 +163,9 @@ class ActivityDetectionRunner:
         ]
         self._carry = None
         self._t0 = 0
+        self._jit_step = CompiledStep(self._device_step, adc.device,
+                                      takes_t0=False)
+        self._jit_init = self._device_init
 
     def _device_init(self):
         return {
@@ -176,15 +186,20 @@ class ActivityDetectionRunner:
             return False
         return any(bool(st["active"].any()) for st in self._carry["segs"])
 
+    def _set_carry(self, carry):
+        """Make ``carry`` (a restored checkpoint's) the runner's carry,
+        through the compiled step's static carry where it holds one."""
+        self._carry = install_carry((self._jit_step,), self._carry, carry)
+
     def process_spectra(self, spectra: np.ndarray):
         """[B, blocklen] complex spectra (any B, one step) -> the events
         in emission order."""
         if self._carry is None:
-            self._carry = self._device_init()
+            self._carry = self._jit_init()
         spectra = np.ascontiguousarray(spectra, np.complex64)
         nb = spectra.shape[0]
-        self._carry, outs = self._device_step(
-            self._carry, torch.from_numpy(spectra).to(self.adc.device))
+        step = self._jit_step if self.compile_step else self._jit_step.eager
+        self._carry, outs = step(self._carry, torch.from_numpy(spectra))
         events = []
         for em, so in zip(self.emitters, outs):
             so = _to_host(so)

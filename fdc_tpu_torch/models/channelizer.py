@@ -8,7 +8,11 @@ geometry and registers the constant tables as buffers on ``device``; the
 step ``(carry, samples, t0) -> (carry, outputs)`` processes
 ``batch_blocks`` FFT blocks at a time through the hand-written kernels,
 and the host loop (``process`` / ``flush``) buffers samples
-into batches and runs the emission layer. ``process_spectra`` is the
+into batches and runs the emission layer. As ``fdc_tpu`` jits its
+steps, ``process``, ``process_spectra`` and ``flush`` run theirs
+compiled (``runtime.compiled.CompiledStep``: one captured CUDA graph a
+batch shape on the card), with ``t0`` a device scalar; ``_device_step``
+stays the eager step. ``process_spectra`` is the
 pre-FFT'd entry point (the reference's vector-input mode): it feeds
 normalized fftshifted spectra past the framing and the FFT.
 
@@ -63,6 +67,11 @@ from fdc_tpu_torch.ops.extract import (
 from fdc_tpu_torch.ops.extract_fused import mask_extent
 from fdc_tpu_torch.ops.fft import forward_spectrum
 from fdc_tpu_torch.ops.framing import frame_blocks
+from fdc_tpu_torch.runtime.compiled import (
+    CompiledStep,
+    GraphPool,
+    install_carry,
+)
 from fdc_tpu_torch.runtime.emission import (
     NativePowerActivationEmitter,
     NativeSegmentDetectionEmitter,
@@ -138,13 +147,16 @@ def _pairs_to_complex(a: np.ndarray) -> np.ndarray:
 
 
 def _to_host(tree):
-    """Nested dict of tensors -> the same dict of numpy arrays (numpy
-    leaves, as a host pipeline's worker ships them, pass as they are)."""
+    """Nested dict of tensors -> the same dict of numpy arrays in memory of
+    their own (a compiled step's next call overwrites its output tensors,
+    on the CPU too); numpy leaves, as a host pipeline's worker ships
+    them, pass as they are."""
     if isinstance(tree, dict):
         return {k: _to_host(v) for k, v in tree.items()}
     if isinstance(tree, np.ndarray):
         return tree
-    return tree.cpu().numpy()
+    t = tree.cpu()
+    return (t.clone() if t is tree else t).numpy()
 
 
 class FrequencyDomainChannelizer(nn.Module):
@@ -159,7 +171,16 @@ class FrequencyDomainChannelizer(nn.Module):
     Constructing one sets ``torch.backends.cuda.matmul.allow_tf32`` and
     ``torch.backends.cudnn.allow_tf32`` to False process-wide: TF32 would
     cost ~40 dB of extraction SNR (the reference keeps fp32).
+
+    The streaming API runs the step compiled (``_jit_step``,
+    ``_jit_step_spectra``, as ``fdc_tpu`` names its jitted steps): its
+    outputs are overwritten by the next step, so ``_consume_outputs``
+    copies them to the host first, and ``self._carry`` is the compiled
+    step's static carry. A subclass whose step cannot run so sets
+    ``compile_step = False`` and runs ``_device_step`` eagerly.
     """
+
+    compile_step = True
 
     def __init__(self, config: Optional[ChannelizerConfig] = None, *,
                  device="cuda", **kwargs):
@@ -355,6 +376,15 @@ class FrequencyDomainChannelizer(nn.Module):
         self._spectra_mode = False
         self._samples_mode = False
         self.to(self.device)
+        # the compiled steps (JAX: jax.jit of the same functions) share
+        # one graph memory pool; the init only allocates the carry, which
+        # the first compiled call copies into its static buffers
+        pool = GraphPool()
+        self._jit_step = CompiledStep(self._device_step, self.device,
+                                      pool=pool)
+        self._jit_step_spectra = CompiledStep(self._device_step_spectra,
+                                              self.device, pool=pool)
+        self._jit_init = self._device_init
 
         if cfg.verbose:
             self.log("# fdc_tpu_torch FrequencyDomainChannelizer")
@@ -383,11 +413,12 @@ class FrequencyDomainChannelizer(nn.Module):
             carry[f"seg{i}"] = sd.init_state(dev)
         return carry
 
-    def _device_step(self, carry, x: torch.Tensor, t0: int):
+    def _device_step(self, carry, x: torch.Tensor, t0):
         """One step over B = len(x) // inplen blocks.
 
         x: [B*inplen] complex64 samples on the module's device; t0: global
-        index of the first block. Returns (new_carry, outputs)."""
+        index of the first block, an int or (compiled) a 0-d int32 tensor
+        on the module's device. Returns (new_carry, outputs)."""
         cfg = self.config
         blocks, hist = frame_blocks(x, carry["hist"], cfg.blocksize)
         # the front end writes rows 1..B of the extended spectrum in place
@@ -400,7 +431,7 @@ class FrequencyDomainChannelizer(nn.Module):
         new_carry["hist"] = hist
         return self._step_from_spec(new_carry, spec_ext, t0)
 
-    def _device_step_spectra(self, carry, spec: torch.Tensor, t0: int):
+    def _device_step_spectra(self, carry, spec: torch.Tensor, t0):
         """Pre-FFT'd step (the reference's vector-input mode, reference:
         python/FrequencyDomainChannelizer.py:201-216): spec is [B, N]
         complex64, already normalized fftshifted spectra; the framing
@@ -411,7 +442,7 @@ class FrequencyDomainChannelizer(nn.Module):
     def _step_from_spec(self, new_carry, spec_ext, t0):
         """The step after the front end. ``spec_ext``: [B + 1, N], the
         carried last row of the previous batch, then this batch's
-        spectra."""
+        spectra; ``t0`` as :meth:`_device_step` takes it."""
         cfg = self.config
         spec = spec_ext[1:]
         new_carry["prev_spec"] = spec[-1].clone()
@@ -639,6 +670,9 @@ class FrequencyDomainChannelizer(nn.Module):
 
     def reset(self):
         self._carry = None
+        # the graphs and their pool's memory go with the stream
+        self._jit_step.release()
+        self._jit_step_spectra.release()
         self._t0 = 0
         self._pending = np.zeros(0, np.complex64)
         self._pending_spec = np.zeros((0, self.config.blocksize),
@@ -655,6 +689,22 @@ class FrequencyDomainChannelizer(nn.Module):
         """Checkpoint hook: restore what :meth:`_host_extra_state` saved
         (called after the carry and emitter state are in place)."""
 
+    def _set_carry(self, carry):
+        """Make ``carry`` (a restored checkpoint's) the stream's carry:
+        written into the static carry of the compiled step that holds the
+        stream, whose graph reads it, else bound as it is."""
+        self._carry = install_carry(
+            (self._jit_step, self._jit_step_spectra), self._carry, carry)
+
+    def _run_step(self, compiled: CompiledStep, chunk: np.ndarray):
+        """One batch (host samples or spectrum rows) through ``compiled``
+        at the stream's cursor (eagerly where the class opts out);
+        returns the step's outputs."""
+        step = compiled if self.compile_step else compiled.eager
+        self._carry, out = step(self._carry, torch.from_numpy(chunk),
+                                self._t0)
+        return out
+
     def process(self, samples: np.ndarray) -> ProcessResult:
         """Buffered streaming entry point: any-length complex64 sample
         arrays; whole batches are processed, the remainder is buffered."""
@@ -667,7 +717,7 @@ class FrequencyDomainChannelizer(nn.Module):
             )
         self._samples_mode = True
         if self._carry is None:
-            self._carry = self._device_init()
+            self._carry = self._jit_init()
         x = np.concatenate([self._pending, np.asarray(samples, np.complex64)])
         bs = self.batch_samples
         n_batches = len(x) // bs
@@ -675,8 +725,7 @@ class FrequencyDomainChannelizer(nn.Module):
         result = self._new_result()
         dbg = []
         for i in range(n_batches):
-            chunk = torch.from_numpy(x[i * bs:(i + 1) * bs]).to(self.device)
-            self._carry, out = self._device_step(self._carry, chunk, self._t0)
+            out = self._run_step(self._jit_step, x[i * bs:(i + 1) * bs])
             self._consume_outputs(out, result, dbg)
             self._t0 += cfg.batch_blocks
             result.blocks_processed += cfg.batch_blocks
@@ -774,7 +823,7 @@ class FrequencyDomainChannelizer(nn.Module):
                 f"spectra must be [B, {cfg.blocksize}], got {spectra.shape}"
             )
         if self._carry is None:
-            self._carry = self._device_init()
+            self._carry = self._jit_init()
         self._spectra_mode = True
         spectra = np.concatenate([self._pending_spec, spectra])
         bb = cfg.batch_blocks
@@ -783,10 +832,8 @@ class FrequencyDomainChannelizer(nn.Module):
         result = self._new_result()
         dbg = []
         for i in range(n_batches):
-            chunk = torch.from_numpy(spectra[i * bb:(i + 1) * bb]).to(
-                self.device)
-            self._carry, out = self._device_step_spectra(self._carry, chunk,
-                                                         self._t0)
+            out = self._run_step(self._jit_step_spectra,
+                                 spectra[i * bb:(i + 1) * bb])
             self._consume_outputs(out, result, dbg)
             self._t0 += bb
             result.blocks_processed += bb
@@ -797,7 +844,9 @@ class FrequencyDomainChannelizer(nn.Module):
     def _consume_outputs(self, out, result: ProcessResult, dbg: list,
                          t0: int = None):
         # t0 defaults to the streaming cursor; the pipeline passes each
-        # batch's own t0, since it consumes outputs deferred
+        # batch's own t0, since it consumes outputs deferred. Every output
+        # is copied to the host here: the compiled step's next call
+        # overwrites them
         t0 = self._t0 if t0 is None else t0
         if self.throughput:
             for bucket, mat in zip(self.throughput.buckets,

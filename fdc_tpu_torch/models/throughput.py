@@ -157,13 +157,15 @@ class ThroughputChannelizer(BucketTables, nn.Module):
     def num_channels(self) -> int:
         return len(self.geometry)
 
-    def finish_bucket(self, bucket: _Bucket, y: torch.Tensor, t0: int,
+    def finish_bucket(self, bucket: _Bucket, y: torch.Tensor, t0,
                       prephased: bool = False) -> torch.Tensor:
         """[C, B, out_len, 2] trimmed extraction -> the per-channel stream
         matrix [C, B*out_len, 2]; applies the overlap-save phase
         compensation (window index (t * start) % R, reference:
         lib/phase_shifting_windowing_vcc_impl.cc:80-83) unless
-        ``prephased``."""
+        ``prephased``. ``t0``, the first row's global block index: an int,
+        or a 0-d int32 tensor on ``y``'s device (the compiled step's: an
+        int would be baked into its graph)."""
         b = y.shape[1]
         if not prephased:
             starts, _ = self.tables(bucket)

@@ -96,6 +96,11 @@ class PipelineChannelizer(Lanes, FrequencyDomainChannelizer):
     batch ships with the previous batch's last spectrum row prepended.
     """
 
+    # its stages run on several lanes and its outputs are consumed a batch
+    # or two late, past the next replay of a compiled step: they stay
+    # eager (JAX: parallel/pipeline.py:258-261 jits each stage)
+    compile_step = False
+
     def __init__(self, config: Optional[ChannelizerConfig] = None,
                  devices: Optional[List] = None, window: int = 0,
                  dedicated_owner: bool = False, shard_time: int = 1,

@@ -76,6 +76,10 @@ class ShardedChannelizer(Lanes, FrequencyDomainChannelizer):
     its sharded ones); channel rows are zero-padded per rank.
     """
 
+    # its step runs over the ranks' streams: it stays eager (JAX:
+    # parallel/sharded.py:168-169 jits the shard_map step)
+    compile_step = False
+
     def __init__(self, config: Optional[ChannelizerConfig] = None,
                  mesh: Mesh = None, **kwargs):
         if mesh is None:

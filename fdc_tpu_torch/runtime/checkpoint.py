@@ -20,7 +20,9 @@ other:
 - no torch (or JAX) object is pickled, so either side unpickles the
   file without the other's framework.
 
-In memory the port keeps complex64: the pairs exist only in the file.
+In memory the port keeps complex64: the pairs exist only in the file. A
+restored carry is written into the compiled step's static carry (the
+buffers its CUDA graph reads) where the stream already has one.
 """
 
 from __future__ import annotations
@@ -128,7 +130,8 @@ def load_checkpoint(fdc, path: str):
     if state.get("version") != _FORMAT_VERSION:
         raise ValueError(
             f"unsupported checkpoint version {state.get('version')}")
-    fdc._carry = _restore_carry(fdc._device_init(), state, fdc.device)
+    # through the compiled step's static carry, which its graph reads
+    fdc._set_carry(_restore_carry(fdc._device_init(), state, fdc.device))
     fdc._t0 = int(state["t0"])
     fdc._pending = np.asarray(state["pending"], np.complex64)
     # files older than the vector-mode buffer lack it (absent => empty)
@@ -187,8 +190,8 @@ def load_vcm_checkpoint(runner, path: str) -> dict:
             f"not a vcm runner checkpoint "
             f"(version={state.get('version')}, kind={state.get('kind')})"
         )
-    runner._carry = _restore_carry(runner._device_init(), state,
-                                   runner.adc.device)
+    runner._set_carry(_restore_carry(runner._device_init(), state,
+                                     runner.adc.device))
     runner._t0 = int(state["t0"])
     if len(state["emitters"]) != len(runner.emitters):
         raise ValueError("segment count mismatch")

@@ -1,0 +1,413 @@
+"""Compiled steps: the port's counterpart of ``jax.jit`` for a step.
+
+``fdc_tpu`` compiles each step into one XLA program and dispatches it
+once a batch (``jax.jit(self._device_step)``, with ``t0`` a traced
+int32). On the card the counterpart is a captured CUDA graph.
+:class:`CompiledStep` wraps a step function ``fn(carry, *inputs, t0) ->
+(new_carry, out)`` (``t0`` left out with ``takes_t0=False``) and runs it
+with one buffer discipline on both devices:
+
+- **Static inputs.** One set of input buffers per input shape, and
+  ``t0`` as a 0-d int32 tensor: each call copies its inputs in and
+  writes ``t0``. A Python ``int`` would be baked into the graph at
+  capture.
+- **Static carry.** The carry leaves are ordinary allocations outside
+  the graph pool. The step's new carry is copied back into them at the
+  end of the captured region; the call returns them, and the caller
+  keeps the returned dict as its carry. A carry the wrapper does not own
+  (the first call's, a restored checkpoint's, one made after a reset) is
+  copied in first (:meth:`CompiledStep.adopt`).
+- **Outputs.** Every call returns the same output tensors, overwritten
+  by the next call of any step that shares the pool: copy what you keep
+  to the host before the next step.
+
+One graph per input shape (jit's cache per shape), captured after two
+eager warm-up calls on a side stream, which fill the cached device
+tables, cuFFT's plans and the kernel library's build. A capture that
+fails raises :class:`CaptureError` with the failing operation's message;
+there is no eager fallback on the card. On the CPU each call runs the
+step eagerly where the card replays, through the same copy-in,
+copy-back and output buffers; its first call per shape runs under a
+guard that raises :class:`CaptureError` on an operation that would
+refuse capture on the card (a host read of a device value, an output
+whose size depends on the data).
+
+Launch accounting: a kernel wrapper counts its launches in its Python
+body, which under replay runs only at capture. Each graph records the
+wrappers' counts during its capture and adds them on every replay, so
+the counts equal the eager step's.
+"""
+
+from __future__ import annotations
+
+import importlib
+import inspect
+import sys
+import weakref
+from typing import Optional
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+__all__ = [
+    "CaptureError",
+    "CompiledStep",
+    "GraphPool",
+    "install_carry",
+    "launch_counters",
+]
+
+# (module, attribute) of every kernel wrapper that counts its launches
+COUNTED = (
+    ("fdc_tpu_torch.ops.extract_fused", "extract_shared"),
+    ("fdc_tpu_torch.ops.extract_fused", "extract_shared_fold"),
+    ("fdc_tpu_torch.ops.extract_fused", "extract_static"),
+    ("fdc_tpu_torch.ops.detect", "candidate_packs"),
+    ("fdc_tpu_torch.ops.detect", "greedy_accept_batch"),
+    ("fdc_tpu_torch.ops.lifecycle", "slot_lifecycle_multi"),
+    ("fdc_tpu_torch.ops.powact", "powact_flags"),
+    ("fdc_tpu_torch.ops.fft", "forward_spectrum_four_step"),
+    ("fdc_tpu_torch.ops.fft", "forward_spectrum_two_pass"),
+    ("fdc_tpu_torch.ops.probes", "tile_probe"),
+)
+
+
+class CaptureError(RuntimeError):
+    """The step cannot be captured as a CUDA graph (on the CPU: it runs an
+    operation that would refuse capture on the card)."""
+
+
+def launch_counters():
+    """The kernel wrappers as their modules bind them now (a wrapper
+    counts into the object its module's name refers to), each once."""
+    fns = {}
+    for mod, name in COUNTED:
+        fn = getattr(importlib.import_module(mod), name)
+        fns[id(fn)] = fn
+    return list(fns.values())
+
+
+class GraphPool:
+    """One CUDA graph memory pool shared by the graphs of one owner's
+    steps (``torch.cuda.graph_pool_handle``), made at the first capture.
+    Graphs that share a pool must not run concurrently, and one graph's
+    outputs are only valid until another of them replays."""
+
+    def __init__(self):
+        self._handle = None
+
+    def handle(self):
+        if self._handle is None:
+            self._handle = torch.cuda.graph_pool_handle()
+        return self._handle
+
+    def renew(self):
+        """A new pool from the next capture on: once every graph of a pool
+        is gone, the allocator frees it and refuses captures into it."""
+        self._handle = None
+
+
+# -- trees of tensors ---------------------------------------------------------
+
+def _map(fn, tree):
+    """fn over the tensor leaves of nested dicts / lists / tuples; other
+    leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _pairs(a, b, path="carry"):
+    """(path, a leaf, b leaf) over the tensor leaves of two trees of one
+    structure, walked in ``a``'s order (dicts matched by key)."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            raise ValueError(f"{path}: keys {sorted(a)} against "
+                             f"{sorted(b) if isinstance(b, dict) else b!r}")
+        for k in a:
+            yield from _pairs(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            raise ValueError(f"{path}: {len(a)} entries against {b!r}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from _pairs(x, y, f"{path}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        if not isinstance(b, torch.Tensor):
+            raise ValueError(f"{path}: a tensor against {type(b).__name__}")
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise ValueError(f"{path}: {a.dtype}{list(a.shape)} against "
+                             f"{b.dtype}{list(b.shape)}")
+        yield path, a, b
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _storage(t):
+    """The address range of the storage behind ``t``."""
+    s = t.untyped_storage()
+    return s.data_ptr(), s.data_ptr() + s.nbytes()
+
+
+def _overlaps(t, spans):
+    lo, hi = _storage(t)
+    return any(lo < h and l < hi for l, h in spans)
+
+
+def _same(a, b):
+    """The same elements in the same layout."""
+    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                      and a.stride() == b.stride() and a.dtype == b.dtype)
+
+
+def _own(t, device):
+    """A copy of ``t`` on ``device`` in an allocation of its own."""
+    return torch.empty(t.shape, dtype=t.dtype, device=device).copy_(t)
+
+
+# -- the CPU's capture guard ---------------------------------------------------
+
+_aten = torch.ops.aten
+# operations that read a device value on the host, or size their output
+# by the data: on the card each synchronizes, which a capture refuses
+_REFUSED = {
+    _aten._local_scalar_dense, _aten.nonzero, _aten.masked_select,
+    _aten.unique_consecutive, _aten._unique, _aten._unique2,
+    _aten.unique_dim, _aten.equal, _aten.is_nonzero, _aten.bincount,
+}
+_MASK_INDEXED = {_aten.index, _aten.index_put, _aten.index_put_,
+                 _aten._index_put_impl_}
+
+
+def _refuses_capture(func, args, kwargs) -> bool:
+    op = func.overloadpacket
+    if op in _REFUSED:
+        return True
+    if op is _aten.repeat_interleave:
+        return kwargs.get("output_size") is None
+    if op in _MASK_INDEXED:
+        return any(isinstance(i, torch.Tensor)
+                   and i.dtype in (torch.bool, torch.uint8)
+                   for i in args[1] if i is not None)
+    return False
+
+
+def _in_plain_version() -> bool:
+    """Whether a kernel's plain version (a ``*_plain`` function of
+    ``fdc_tpu_torch.ops``) is on the stack: on the card it is one kernel
+    launch, whatever it does on the CPU."""
+    f = sys._getframe(2)
+    while f is not None:
+        if (f.f_code.co_name.endswith("_plain") and f.f_globals.get(
+                "__name__", "").startswith("fdc_tpu_torch.ops")):
+            return True
+        f = f.f_back
+    return False
+
+
+class _CaptureGuard(TorchDispatchMode):
+    """Raises :class:`CaptureError` on an operation a CUDA graph capture
+    would refuse, outside the kernels' plain versions."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if _refuses_capture(func, args, kwargs) and not _in_plain_version():
+            raise CaptureError(
+                f"{func} would refuse CUDA graph capture (a host read of a "
+                f"device value, or an output sized by the data)")
+        return func(*args, **kwargs)
+
+
+# -- the compiled step ---------------------------------------------------------
+
+class _Entry:
+    """One input shape's static inputs, graph, outputs and launches."""
+
+    def __init__(self, inputs):
+        self.inputs = inputs
+        self.graph = None
+        self.out = None
+        self.launches = {}
+        self.clone_new = set()  # new-carry leaves that alias the static carry
+        self.clone_out = set()  # outputs that alias it
+
+
+class CompiledStep:
+    """``fn(carry, *inputs[, t0]) -> (new_carry, out)`` replayed as one
+    CUDA graph per input shape on the card (see the module docstring).
+
+    Call it as the step: ``carry, out = step(carry, *inputs, t0)``, with
+    ``inputs`` tensors on any device (a host tensor is copied to the
+    card) and ``t0`` an int. ``fn`` (a bound method is held weakly, so
+    the step does not keep its owner alive) stays reachable as
+    :attr:`fn`, and :meth:`eager` runs it.
+    """
+
+    def __init__(self, fn, device, *, pool: Optional[GraphPool] = None,
+                 takes_t0: bool = True):
+        if inspect.ismethod(fn):
+            self._fn = weakref.WeakMethod(fn)
+        else:
+            self._fn = lambda: fn
+        self.device = torch.device(device)
+        self.pool = pool if pool is not None else GraphPool()
+        self.takes_t0 = takes_t0
+        self.release()
+
+    @property
+    def fn(self):
+        """The eager step function."""
+        return self._fn()
+
+    def release(self):
+        """Drop the graphs, their outputs and the static carry (a reset
+        stream; the next call captures anew, into a new pool)."""
+        self._carry = None
+        self._entries = {}
+        self.pool.renew()
+        self._t0 = torch.zeros((), dtype=torch.int32, device=self.device)
+
+    def eager(self, carry, *args):
+        """The step run eagerly, without graph or static buffers, its
+        tensor arguments moved to the step's device (the path of a caller
+        that opts out)."""
+        return self.fn(carry, *(a.to(self.device)
+                                if isinstance(a, torch.Tensor) else a
+                                for a in args))
+
+    def owns(self, carry) -> bool:
+        """Whether ``carry`` is this step's static carry."""
+        return carry is not None and carry is self._carry
+
+    def adopt(self, carry):
+        """Copy ``carry`` into the static carry (allocated on the first
+        call, then written in place: the graphs read it) and return it."""
+        if self._carry is None:
+            self._carry = _map(lambda t: _own(t, self.device), carry)
+            return self._carry
+        for _, s, c in _pairs(self._carry, carry):
+            if not _same(s, c):
+                s.copy_(c)
+        return self._carry
+
+    def __call__(self, carry, *args):
+        inputs, t0 = (args[:-1], args[-1]) if self.takes_t0 else (args, None)
+        if carry is not self._carry:
+            self.adopt(carry)
+        key = tuple((tuple(x.shape), x.dtype) for x in inputs)
+        entry = self._entries.get(key)
+        fresh = entry is None
+        if fresh:
+            entry = _Entry([torch.empty(x.shape, dtype=x.dtype,
+                                        device=self.device) for x in inputs])
+        for buf, x in zip(entry.inputs, inputs):
+            buf.copy_(x)
+        if t0 is not None:
+            self._t0.fill_(int(t0))
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                if fresh:
+                    self._capture(entry)
+                entry.graph.replay()
+            for fn, n in entry.launches.items():
+                fn.launches += n
+        elif fresh:
+            with _CaptureGuard():
+                out = self._body(entry, fresh=True)
+            entry.out = _map(lambda t: _own(t, self.device), out)
+        else:
+            out = self._body(entry, fresh=False)
+            for _, o, t in _pairs(entry.out, out, "out"):
+                o.copy_(t)
+        if fresh:
+            self._entries[key] = entry
+        return self._carry, entry.out
+
+    def _args(self, carry, entry):
+        return [carry, *entry.inputs] + ([self._t0] if self.takes_t0 else [])
+
+    def _body(self, entry, fresh):
+        """The step from the static buffers, its new carry copied back into
+        the static carry; returns the outputs. The aliasing of the new
+        carry and the outputs with the static carry is read on the first
+        run (the capture) by address ranges: a leaf that overlaps it is
+        cloned first, so the copy-back neither reads a leaf it already
+        overwrote nor changes an output."""
+        new, out = self.fn(*self._args(self._carry, entry))
+        pairs = list(_pairs(self._carry, new))
+        out_leaves = list(_leaves(out))
+        if fresh:
+            spans = [_storage(s) for _, s, _ in pairs]
+            entry.clone_new = {i for i, (_, s, n) in enumerate(pairs)
+                               if not _same(s, n) and _overlaps(n, spans)}
+            entry.clone_out = {i for i, o in enumerate(out_leaves)
+                               if _overlaps(o, spans)}
+        if entry.clone_out:
+            ids = {id(o) for i, o in enumerate(out_leaves)
+                   if i in entry.clone_out}
+            out = _map(lambda t: t.clone() if id(t) in ids else t, out)
+        news = [n.clone() if i in entry.clone_new else n
+                for i, (_, _, n) in enumerate(pairs)]
+        for (_, s, _), n in zip(pairs, news):
+            if not _same(s, n):
+                s.copy_(n)
+        return out
+
+    def _capture(self, entry):
+        """Two eager warm-up calls on a side stream (on a clone of the
+        carry, so the stream's state does not move), then the capture on
+        it; the wrappers' counts are put back as they were and the
+        capture's kept as the graph's launches. The capture is begun and
+        ended directly: ``torch.cuda.graph`` would also run
+        ``gc.collect()`` and empty the allocator's cache before it, a
+        cost that grows with the host's heap."""
+        counters = launch_counters()
+        before = {fn: fn.launches for fn in counters}
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    self.fn(*self._args(_map(torch.clone, self._carry),
+                                        entry))
+                warm = {fn: fn.launches for fn in counters}
+                try:
+                    graph.capture_begin(pool=self.pool.handle())
+                    try:
+                        entry.out = self._body(entry, fresh=True)
+                    finally:
+                        graph.capture_end()
+                except RuntimeError as e:
+                    self.pool.renew()  # the failed graph leaves it unusable
+                    raise CaptureError(f"the step does not capture as a "
+                                       f"CUDA graph: {e}") from e
+            entry.launches = {fn: fn.launches - warm[fn] for fn in counters
+                              if fn.launches != warm[fn]}
+        finally:
+            for fn in counters:
+                fn.launches = before[fn]
+            cur.wait_stream(side)
+        entry.graph = graph
+
+
+def install_carry(steps, current, carry):
+    """``carry`` (made outside the step: a restored checkpoint) written
+    into the static carry of the step in ``steps`` that owns ``current``,
+    the stream's carry, whose graphs read it; ``carry`` itself where none
+    does (the next compiled call copies it in)."""
+    for step in steps:
+        if step.owns(current):
+            return step.adopt(carry)
+    return carry
