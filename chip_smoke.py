@@ -87,12 +87,14 @@ with its wall seconds:
    ``process_spectra`` on the card's spectra, the checkpoint split
    plain -> pipeline and pipeline -> plain, and a ``HostPipelineOwner``
    here with a ``python -m fdc_tpu_torch run --hostpipe-worker 1:2``
-   process on the same card; every run equal to phase 3's process() +
+   process on the same card (the stages replayed as CUDA graphs, as
+   users run them); every run equal to phase 3's process() +
    flush(), each with its host wall beside the plain run's and its
    launches, the stage-A reach-back row bit-equal to the plain step's
    carried row, and the hostpipe's bytes a batch each way;
 9. the sharded step (``sharded_phase``): ``ShardedChannelizer`` over
-   meshes of ranks that are streams of the card, each run cold then warm:
+   meshes of ranks that are streams of the card (the step one CUDA graph
+   over the ranks' streams), each run cold then warm:
    the flagship at 4x1, 2x2, 1x2 and 8x1 (time x chan ranks), hunter4seg
    and split4 at 2x2 (scan ownership and cut views across chan ranks),
    the example at 2x2 (kernel E's fused rows split), powact32 at 4x1
@@ -132,14 +134,34 @@ with its wall seconds:
    counts equal (and equal to phase 3's), two steps key by key, the
    graphed step's time by CUDA events beside the eager step's and both
    device busy times, the first call's warm-up and capture, and the
-   host walls.
+   host walls. First, a capture during which a captured graph becomes
+   garbage due for collection (``garbage_capture``): it must hold, as
+   the capture pauses the collector.
+12. the multi-device steps compiled (``compiled_lanes_phase``), each
+   against the class's eager opt-out in turns, as phase 11, at full
+   width: the sharded step (the flagship at 4x1 and 2x2, hunter4seg and
+   split4 at 2x2; with its step time by CUDA events graphed and eager,
+   the busy times and the first call's warm-up and capture), the
+   pipeline's stage rings (the flagship on 3 lanes with a dedicated
+   owner, split4 with 2 scan owners, the flagship with shard_time 2 on
+   4 lanes, segdet's ``process_spectra``; with the first batch's
+   captures), a ``HostPipelineOwner`` with a worker process (both ends
+   graphed, then both eager), the multihost step (two processes, one
+   graph a segment between the host gathers, then ``--eager``) and both
+   port examples (``examples/*_torch.py``, graphed, eager and on the
+   CPU). Each prints
+   equal results (and whether bit-equal), equal launch counts, the host
+   walls (cold, warm, steady) and the graph pools' MB.
 
 ``process``, ``process_spectra`` and ``flush`` replay the step as a CUDA
-graph (``fdc_tpu_torch.runtime.compiled``), and a replay runs no Python:
-a wrapper swapped in by module attribute (``swapped``) or a method
-patched on the channelizer takes effect only in a graph captured after
-the swap. So the phases that swap wrappers drive ``_device_step``, the
-eager step, and ``plan_tally`` drops the graphs around its run.
+graph (``fdc_tpu_torch.runtime.compiled``), as do the sharded step and
+the pipeline's stages (phases 8, 9 and 12 run them so, as users do), and
+a replay runs no Python: a wrapper swapped in by module attribute
+(``swapped``) or a method patched on the channelizer takes effect only
+in a graph captured after the swap. So the phases that swap wrappers
+drive ``_device_step``, the eager step, or the class's eager opt-out
+(``eager_run``: phase 9's shard_time pipeline), and ``plan_tally`` drops
+the graphs around its run.
 
 In the kernel summary JSON, ``ms``, ``plain_ms``, ``bound_ms`` and
 ``library_ms`` are sums over the kernel's phase-2 cases (for
@@ -2004,9 +2026,9 @@ def pipe_run(what, fdc, drive, ref, expect, plain, card, warm=True,
 
 
 def reach_back_check(p):
-    """Stage A's [1, N] reach-back row (kernel F) against row B of the
-    previous batch's [B, N] call and the plain step's carried prev_spec:
-    bit-equal (max abs err 0)."""
+    """Stage A's [1, N] reach-back row (kernel F, in the stage's graph)
+    against row B of the previous batch's [B, N] call and the plain
+    step's carried prev_spec: bit-equal (max abs err 0)."""
     import torch
 
     from fdc_tpu_torch.parallel import PipelineChannelizer
@@ -2017,8 +2039,10 @@ def reach_back_check(p):
     pipe = PipelineChannelizer(cfg, devices=["cuda:0"])
     rows = []
     for b in range(2):
-        rows.append(pipe._pipe_front(0, x[b * bs:(b + 1) * bs],
-                                     b * cfg.batch_blocks)[5])
+        # the compiled stage A, two slots of lane 0's ring
+        ((host, _),) = pipe._sample_runs(1, x[b * bs:(b + 1) * bs])
+        slot = pipe._next_slot(0, len(pipe._jit_front[0]))
+        rows.append(pipe._front(0, slot, host, b * cfg.batch_blocks)[5])
     plain = p["make"]("cuda")
     carry, _ = plain._device_step(plain._device_init(),
                                   torch.from_numpy(x[:bs]).cuda(), 0)
@@ -2272,12 +2296,15 @@ def hold_calls(what, calls, expect, summary):
         f"versions; max abs err by kernel {worst}")
 
 
-def multihost_run(p, tmp, plain, card):
+def multihost_run(p, tmp, plain, card, tag="phase 9", eager=False):
     """``tools_torch/multihost_worker.py`` as two processes on the card
     over the flagship's config and capture: a 4x2 mesh whose time axis
     crosses the processes (gloo, host-staged). Both processes' events
     equal (their samples' hashes too); process 0's results equal phase
-    3's."""
+    3's. Each process's step is compiled in segments between its
+    gathers, which stage on the host (``eager``: the step's eager
+    opt-out, no graph). Returns (each process's wall, process 0's
+    results)."""
     import pickle
 
     cfg = p["fdc"].config
@@ -2288,7 +2315,8 @@ def multihost_run(p, tmp, plain, card):
     t = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, str(worker), str(pid), "2",
-         f"file://{tmp / 'mh_store'}", "--cuda", "--config",
+         f"file://{tmp / ('mh_store_eager' if eager else 'mh_store')}",
+         "--cuda", *(["--eager"] if eager else []), "--config",
          str(tmp / "mh.json"), "--capture", str(tmp / "mh.c64"), "--out",
          str(tmp / "mh.pkl")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -2314,6 +2342,8 @@ def multihost_run(p, tmp, plain, card):
     with open(tmp / "mh.pkl", "rb") as f:
         res = pickle.load(f)
     n_ev, err = compare_runs("multihost", res, p["ref"])
+    how = ("eager" if eager else
+           "graphs a process (segments between the gathers): ")
     walls = []
     for pid, ls in enumerate(lines):
         m = next(re.match(r"PROC\d WALL (\S+) s STEPS (\d+) LAUNCHES (.*)$",
@@ -2323,12 +2353,18 @@ def multihost_run(p, tmp, plain, card):
         assert_predicted(f"multihost process {pid}",
                          ast.literal_eval(m.group(3)), int(m.group(2)),
                          flagship_prediction(2, 2))
-    log(f"phase 9: multihost (flagship, 2 processes x 4 ranks on the card, "
+        graphs = [int(ln.split(" GRAPHS ")[1]) for ln in ls
+                  if " GRAPHS " in ln]
+        assert graphs and (graphs[0] == 0) == eager, (eager, graphs)
+        if not eager:
+            how += f"{'' if pid == 0 else ', '}{graphs[0]}"
+    log(f"{tag}: multihost (flagship, 2 processes x 4 ranks on the card, "
         f"a 4x2 mesh, gloo): {n_ev} events equal to phase 3 (max abs err "
         f"{err:.3g}) and equal in both processes; process() + flush() "
         f"in each process: {walls} s against plain {plain:.4f} s; both "
         f"processes {wall:.2f} s with start-up; each process's launches "
-        f"a step as predicted, {flagship_prediction(2, 2)} {card}")
+        f"a step as predicted, {flagship_prediction(2, 2)}; {how} {card}")
+    return walls, res
 
 
 def idle_chain(fdc, card):
@@ -2472,10 +2508,14 @@ def sharded_phase(paths, card, summary):
                           "candidate_packs": 2, "slot_lifecycle": 1})
         log(f"phase 9: flagship pipeline shard_time 2: launches a step "
             f"{per_step(launches, steps)}, as predicted")
-        restart(pipe)
-        hold_calls("flagship pipeline shard_time 2, its first two batches",
-                   recorded_calls(lambda: pipe.process(x[:2 * bs])),
-                   FLAGSHIP_KERNELS, summary)
+        # swapped wrappers take effect only in eager runs (a replay runs
+        # no Python): the stages' calls are recorded from the opt-out
+        with eager_run(pipe):
+            restart(pipe)
+            hold_calls("flagship pipeline shard_time 2, its first two "
+                       "batches",
+                       recorded_calls(lambda: pipe.process(x[:2 * bs])),
+                       FLAGSHIP_KERNELS, summary)
         multihost_run(flag, tmp, walls["flagship"], card)
 
         # the CLI on this card: a mesh larger than the devices
@@ -2975,15 +3015,72 @@ def compiled_path(name, p, card):
     return runs["graphed", "cold"], fdcs["graphed"]
 
 
+def garbage_capture(card):
+    """A capture during which a captured graph becomes unreachable, young
+    and due for collection at the next allocation: the capture must hold
+    (the collector is paused across it; a graph freed inside another's
+    capture invalidates that capture), the step's values must be right,
+    and the garbage must be gone after."""
+    import gc
+    import weakref
+
+    import torch
+
+    from fdc_tpu_torch.runtime.compiled import CompiledStep
+
+    dev = torch.device("cuda")
+
+    class Cycle:
+        pass
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1 << 30)   # no collection: the orphan stays young
+    try:
+        orphan = Cycle()
+        orphan.me = orphan          # freed only by the cyclic collector
+        orphan.step = CompiledStep(lambda c, x: (c, {"y": x + 1}), dev,
+                                   takes_t0=False)
+        orphan.step({"a": torch.zeros(1, device=dev)},
+                    torch.ones(4, device=dev))
+        assert len(orphan.step._entries) == 1, "the orphan captured nothing"
+        gone = weakref.ref(orphan)
+        pending = [orphan]
+        del orphan
+
+        def step(carry, x):
+            if torch.cuda.is_current_stream_capturing():
+                pending.clear()      # the cycle is garbage from here on
+                gc.set_threshold(1)  # and the next allocation collects it
+                _ = [{} for _ in range(256)]
+            return {"a": carry["a"] + x.sum()}, {"y": x * 2}
+
+        s = CompiledStep(step, dev, takes_t0=False)
+        carry = {"a": torch.zeros((), device=dev)}
+        for _ in range(2):
+            carry, out = s(carry, torch.ones(4, device=dev))
+        torch.cuda.synchronize()
+    finally:
+        gc.set_threshold(*thresholds)
+    gc.collect()
+    assert float(carry["a"]) == 8.0 and out["y"].tolist() == [2.0] * 4, (
+        carry, out)
+    assert gone() is None, "the unreachable graph was not collected"
+    log(f"phase 11: a capture during which a captured graph is garbage due "
+        f"for collection: captured, values right, the garbage freed after "
+        f"{card}")
+
+
 def compiled_phase(paths, card):
     """Phase 11: every path's process() + flush() through its compiled
     step (one CUDA graph a batch shape) against the eager step, and the
     flagship at B = 510, not a multiple of R = 4 (t0 mod R varies, so the
-    throughput phase comes from t0, a device scalar in the graph)."""
+    throughput phase comes from t0, a device scalar in the graph); first
+    a capture with an unreachable graph pending (:func:`garbage_capture`)."""
     import torch
 
     from fdc_tpu_torch.flagship import _flagship
 
+    garbage_capture(card)
     for name, p in paths.items():
         compiled_path(name, p, card)
         torch.cuda.empty_cache()
@@ -2997,6 +3094,367 @@ def compiled_phase(paths, card):
     assert abs(amp - 1.0) < 0.05 and snr > 25.0, (amp, snr)
     log(f"phase 11: flagship B=510 tone in channel {chan}: amp {amp:.4f}, "
         f"SNR {snr:.1f} dB")
+
+
+# -- phase 12: the multi-device steps compiled ---------------------------
+
+
+@contextlib.contextmanager
+def eager_run(*targets):
+    """The steps of ``targets`` (channelizers, or their classes: the
+    class-wide opt-out) run eagerly inside the block: ``compile_step``
+    set False on each, its own setting restored after."""
+    saved = [t.__dict__.get("compile_step") for t in targets]
+    for t in targets:
+        setattr(t, "compile_step", False)
+    try:
+        yield
+    finally:
+        for t, v in zip(targets, saved):
+            if v is None:
+                delattr(t, "compile_step")
+            else:
+                setattr(t, "compile_step", v)
+
+
+def graph_steps(fdc):
+    """A channelizer's compiled steps: the pipeline's stage rings, else
+    the step and the spectra step."""
+    if hasattr(fdc, "_stage_steps"):
+        return fdc._stage_steps()
+    return [fdc._jit_step, fdc._jit_step_spectra]
+
+
+def pool_mb(steps):
+    """MB of the CUDA graph pools of ``steps``: the allocator's segments
+    in those pools (None where its snapshot names no pools)."""
+    import torch
+
+    handles = {tuple(s.pool._handle) for s in steps
+               if s.pool._handle is not None}
+    total = 0
+    for seg in torch.cuda.memory_snapshot():
+        if "segment_pool_id" not in seg:
+            return None
+        if tuple(seg["segment_pool_id"]) in handles:
+            total += seg["total_size"]
+    return total / 1e6
+
+
+def n_graphs(fdc):
+    return sum(len(s._entries) for s in graph_steps(fdc))
+
+
+def lanes_run(what, make, run, ref, expect, card, spectra=False):
+    """One phase-12 run, graphed against the eager opt-out (on the
+    instance) in turns, as phase 11: a new channelizer (cold), a new
+    stream after a restart, which drops the graphs (warm), and the
+    stream again with the graphs in place (steady); ``run(fdc, part)``
+    drives it. Results equal (and whether bit-equal), launch counts
+    equal, the graphed cold run held against ``ref``. Returns (the
+    graphed channelizer, a log fragment)."""
+    import torch
+
+    fdcs = {"graphed": make(), "eager": make()}
+    fdcs["eager"].compile_step = False
+    for fdc in fdcs.values():
+        restart(fdc)  # records the emitters' state at construction
+    runs, walls, counts = {}, {}, {}
+    order = (("eager", "graphed"), ("graphed", "eager"))
+    for what_run, modes in zip(("cold", "warm"), order):
+        for mode in modes:
+            fdc = fdcs[mode]
+            parts = (("cold",) if what_run == "cold" else
+                     ("warm", "steady"))
+            if what_run == "warm":
+                restart(fdc)
+            for part in parts:
+                res, walls[mode, part], counts[mode, part] = timed(
+                    lambda: run(fdc, part))
+                runs[mode, part] = list(res)
+    g = fdcs["graphed"]
+    assert n_graphs(g) > 0 and n_graphs(fdcs["eager"]) == 0, what
+    got = counts["graphed", "cold"]
+    assert got == counts["eager", "cold"], (what, got, counts)
+    for k in expect:
+        assert got.get(k, 0) > 0, f"{k} was not launched by {what}"
+    def compare(w, a, b):
+        if not spectra:
+            return compare_runs(w, a, b)
+        compare_events(a[0].events, b[0].events, w)
+        return len(a[0].events), None
+
+    n_ev, err = compare(f"{what} graphed against eager",
+                        runs["graphed", "cold"], runs["eager", "cold"])
+    bits = True
+    for part in ("cold", "warm", "steady"):
+        if part != "cold":
+            compare(f"{what} {part} graphed against eager",
+                    runs["graphed", part], runs["eager", part])
+        bits = bits and bit_equal_runs(runs["graphed", part],
+                                       runs["eager", part])
+    if ref is not None:
+        compare(f"{what} against phase 3", runs["graphed", "cold"], ref)
+    torch.cuda.synchronize()
+
+    def wall(mode):
+        return " / ".join(f"{walls[mode, w]:.4f}"
+                          for w in ("cold", "warm", "steady"))
+    return g, (f"graphed == eager: {n_ev} events, bit-equal {bits}"
+               f"{'' if spectra else f' (max abs err {err:.3g})'}, "
+               f"launches {got} equal; walls (host clock) cold / warm / "
+               f"steady: graphed {wall('graphed')} s, eager "
+               f"{wall('eager')} s")
+
+
+def sharded_compiled(name, t, c, p, card):
+    """Phase 12 for a mesh of ranks: process() + flush() graphed against
+    eager (:func:`lanes_run`), two steps key by key, the step by CUDA
+    events over 20 steps (carry fed forward) graphed and eager, the busy
+    times, the first call's warm-up and capture, the graph pool's MB."""
+    from fdc_tpu_torch.parallel import ShardedChannelizer, make_mesh
+
+    def make():
+        return ShardedChannelizer(p["fdc"].config, mesh=make_mesh(
+            t, c, ["cuda:0"] * (t * c)))
+
+    g, frag = lanes_run(f"{name} {t}x{c}", make,
+                        lambda f, part: [f.process(p["x"])] + (
+                            [] if part == "warm" else [f.flush()]),
+                        p["ref"], p["expect"], card)
+    step_err = step_pair(g, p["x"])
+    g_ms, e_ms, e_busy, g_busy, cap = compiled_times(g, p["x"])
+    ratio = "" if e_busy is None else f", {g_ms / e_busy:.3f}x eager's"
+    log(f"phase 12: {name} {t}x{c} mesh: {frag}; 2 steps graphed == eager "
+        f"key by key (max abs diff {step_err:.3g}); step "
+        f"B={g.config.batch_blocks} graphed {g_ms:.4f} ms against eager "
+        f"{e_ms:.4f} ms (device busy with the stream held: eager "
+        f"{fmt_ms(e_busy)}, graphed {fmt_ms(g_busy)}{ratio}); first call "
+        f"(warm-up + capture) {cap:.1f} ms; graph pools "
+        f"{fmt_mb(pool_mb(graph_steps(g)))} {card}")
+
+
+def fmt_mb(mb):
+    return "not measured" if mb is None else f"{mb:.1f} MB"
+
+
+def pipeline_compiled(what, p, card, lanes, spectra=None, **kw):
+    """Phase 12 for a pipeline on ``lanes`` lanes of the card: process() +
+    flush() (or ``process_spectra`` of ``spectra``) graphed against eager
+    (:func:`lanes_run`), the rings' depths and graphs, the first batch's
+    host time on a new stream (its stages' warm-up and capture), the
+    graph pools' MB."""
+    import torch
+
+    from fdc_tpu_torch.parallel import PipelineChannelizer
+
+    def make():
+        return PipelineChannelizer(p["fdc"].config,
+                                   devices=["cuda:0"] * lanes, **kw)
+
+    if spectra is None:
+        def run(f, part):
+            return [f.process(p["x"])] + ([] if part == "warm"
+                                          else [f.flush()])
+        ref = p["ref"]
+    else:
+        def run(f, part):
+            return [f.process_spectra(spectra)]
+        ref = [p["ref"][0]]
+    # vector mode launches no front end
+    expect = [k for k in p["expect"]
+              if spectra is None or k != "forward_fft"]
+    g, frag = lanes_run(what, make, run, ref, expect, card,
+                        spectra=spectra is not None)
+    depth = (len(next(iter(g._jit_front.values()))), len(g._jit_scan))
+    graphs = n_graphs(g)
+    mb = pool_mb(graph_steps(g))
+    restart(g)
+    first = (p["x"][:g.batch_samples] if spectra is None
+             else spectra[:g.config.batch_blocks])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    (g.process if spectra is None else g.process_spectra)(first)
+    torch.cuda.synchronize()
+    cap = (time.perf_counter() - t) * 1e3
+    log(f"phase 12: {what}: {frag}; rings of {depth[0]} (A, C a lane) and "
+        f"{depth[1]} (B) slots, {graphs} graphs; first batch on a new "
+        f"stream (warm-up + capture of its stages) {cap:.1f} ms; graph "
+        f"pools {fmt_mb(mb)} {card}")
+
+
+HOSTPIPE_WORKER = """
+import sys
+import numpy as np
+from fdc_tpu_torch import ChannelizerConfig
+from fdc_tpu_torch.parallel.hostpipe import HostPipelineWorker
+cfg = ChannelizerConfig.from_json(open(sys.argv[1]).read())
+w = HostPipelineWorker(cfg, host_id=1, n_hosts=2, owner_port=int(sys.argv[3]),
+                       devices=["cuda:0"], timeout=300.0)
+if sys.argv[4] == "eager":
+    w.compile_step = False
+w.process(np.fromfile(sys.argv[2], np.complex64))
+w.close()
+print("WORKER GRAPHS", sum(len(s._entries) for s in w._stage_steps()))
+"""
+
+
+def hostpipe_compiled(p, tmp, card):
+    """Phase 12's hostpipe: a HostPipelineOwner here with a worker process
+    on the same card (a ``python -c`` of :class:`HostPipelineWorker`), the
+    pair graphed and then the pair eager: equal results (and whether
+    bit-equal), equal owner launches, both walls."""
+    from fdc_tpu_torch.parallel.hostpipe import HostPipelineOwner
+
+    cfg = p["fdc"].config
+    (tmp / "hp12.json").write_text(cfg.to_json())
+    p["x"].tofile(tmp / "hp12.c64")
+    runs, walls, counts, graphs = {}, {}, {}, {}
+    for mode in ("graphed", "eager"):
+        owner = HostPipelineOwner(cfg, n_workers=1, devices=["cuda:0"],
+                                  timeout=300.0)
+        if mode == "eager":
+            owner.compile_step = False
+        proc = subprocess.Popen(
+            [sys.executable, "-c", HOSTPIPE_WORKER, str(tmp / "hp12.json"),
+             str(tmp / "hp12.c64"), str(owner.port), mode],
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        try:
+            owner.accept_workers()
+            res, walls[mode], counts[mode] = timed(
+                lambda o=owner: [o.process(p["x"]), o.flush()])
+        finally:
+            owner.close()
+            try:
+                out, _ = proc.communicate(timeout=300)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        assert proc.returncode == 0, out[-4000:]
+        graphs[mode] = (n_graphs(owner), int(out.split(
+            "WORKER GRAPHS")[1].split()[0]))
+        runs[mode] = res
+    assert all(graphs["graphed"]) and not any(graphs["eager"]), graphs
+    assert counts["graphed"] == counts["eager"], counts
+    n_ev, err = compare_runs("hostpipe graphed against eager",
+                             runs["graphed"], runs["eager"])
+    compare_runs("hostpipe graphed against phase 3", runs["graphed"],
+                 p["ref"])
+    log(f"phase 12: hostpipe (flagship, owner here + a worker process): "
+        f"graphed == eager: {n_ev} events, bit-equal "
+        f"{bit_equal_runs(runs['graphed'], runs['eager'])} (max abs err "
+        f"{err:.3g}), owner launches {counts['graphed']} equal; graphs "
+        f"(owner, worker) {graphs['graphed']}; walls (host clock, one "
+        f"stream after the worker's start-up): graphed "
+        f"{walls['graphed']:.4f} s, eager {walls['eager']:.4f} s {card}")
+
+
+def example_runs(mod, args):
+    """A port example's ``main`` on the card graphed (a first run, which
+    pays the configuration's first-use costs, then "warm"), on the card
+    with its classes' eager opt-out, and on the CPU (``--cpu``): its
+    results each (the warm graphed run's), its stdout kept quiet, and
+    the walls."""
+    import io
+
+    from fdc_tpu_torch import FrequencyDomainChannelizer
+    from fdc_tpu_torch.parallel import PipelineChannelizer, ShardedChannelizer
+
+    out, walls = {}, {}
+    for mode in ("graphed", "eager", "warm", "cpu"):
+        res = []
+        argv = args + (["--cpu"] if mode == "cpu" else [])
+        ctx = (eager_run(FrequencyDomainChannelizer, ShardedChannelizer,
+                         PipelineChannelizer) if mode == "eager"
+               else contextlib.nullcontext())
+        with ctx, contextlib.redirect_stdout(io.StringIO()):
+            _, walls[mode], _ = timed(lambda: mod.main(argv, results=res))
+        out["graphed" if mode == "warm" else mode] = res
+    return out, walls
+
+
+def examples_compiled(card, tmp):
+    """Phase 12's examples: ``examples/fdc_example_torch.py`` (96 blocks)
+    and ``examples/pod_burst_hunter_torch.py`` (its defaults: 8 ranks
+    of the card, a 4x2 mesh, then the split pipeline on 8 lanes) graphed,
+    eager and on the CPU: graphed equal to eager, and to the CPU run
+    (events' metadata exactly, streams and samples within rtol 2e-4 /
+    atol 2e-5 of the max)."""
+    import importlib.util
+
+    root = Path(__file__).resolve().parent
+    for name, args in (("fdc_example", ["--blocks", "96"]),
+                       ("pod_burst_hunter", [])):
+        spec = importlib.util.spec_from_file_location(
+            f"{name}_torch", root / "examples" / f"{name}_torch.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out, walls = example_runs(
+            mod, args + ["--out", str(tmp / f"{name}.png")])
+        errs, evs, bits = [], 0, True
+        # each result on its own (the pod hunter's: the sharded run's and
+        # the split pipeline's, whose segments differ)
+        for g, e, c in zip(out["graphed"], out["eager"], out["cpu"]):
+            n_ev, _ = compare_runs(f"{name} graphed against eager", [g], [e])
+            bits = bits and bit_equal_runs([g], [e])
+            errs.append(compare_runs(f"{name} card against CPU", [g],
+                                     [c])[1])
+            evs += n_ev
+        assert evs, f"{name}: no events"
+        log(f"phase 12: example {name}_torch: graphed == eager, bit-equal "
+            f"{bits}; {evs} "
+            f"events equal to its CPU run (max abs err {max(errs):.3g}); "
+            f"main() walls (host clock): graphed {walls['graphed']:.2f} s "
+            f"(first) then {walls['warm']:.2f} s, eager "
+            f"{walls['eager']:.2f} s, CPU {walls['cpu']:.2f} s {card}")
+
+
+def compiled_lanes_phase(paths, card):
+    """Phase 12: the multi-device steps compiled, each against the
+    class's eager opt-out in turns at full width (B = 512, blocksize
+    4096): the sharded step (the flagship at 4x1 and 2x2, hunter4seg and
+    split4 at 2x2), the pipeline (the flagship on 3 lanes with a
+    dedicated owner, split4 with 2 scan owners, the flagship with
+    shard_time 2 on 4 lanes, segdet's process_spectra), the hostpipe,
+    the multihost step (two processes, compiled in segments between its
+    gathers) and both port examples against their CPU runs."""
+    import tempfile
+
+    import torch
+
+    for name, t, c in (("flagship", 4, 1), ("flagship", 2, 2),
+                       ("hunter4seg", 2, 2), ("split4", 2, 2)):
+        sharded_compiled(name, t, c, paths[name], card)
+        torch.cuda.empty_cache()
+    pipeline_compiled("flagship pipeline, 3 lanes, dedicated owner",
+                      paths["flagship"], card, lanes=3,
+                      dedicated_owner=True)
+    pipeline_compiled("split4 pipeline, 3 lanes, dedicated owner, 2 scan "
+                      "owners", paths["split4"], card, lanes=3,
+                      dedicated_owner=True, scan_owners=2)
+    pipeline_compiled("flagship pipeline, 4 lanes, shard_time 2",
+                      paths["flagship"], card, lanes=4, shard_time=2)
+    p = paths["segdet"]
+    spectra = np.concatenate(card_spectra(p["fdc"].config, p["x"], "cuda"))
+    pipeline_compiled("segdet process_spectra, 2 lanes", p, card,
+                      spectra=spectra, lanes=2)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="fdc_phase12_") as tmp:
+        tmp = Path(tmp)
+        hostpipe_compiled(paths["flagship"], tmp, card)
+        plain = plain_wall(paths["flagship"])
+        (g_walls, got), (e_walls, ref) = (
+            multihost_run(paths["flagship"], tmp, plain, card,
+                          tag="phase 12", eager=mode)
+            for mode in (False, True))
+        n_ev, err = compare_runs("multihost graphed against eager", got, ref)
+        log(f"phase 12: multihost graphed == eager: {n_ev} events, "
+            f"bit-equal {bit_equal_runs(got, ref)} (max abs err {err:.3g})"
+            f"; process() + flush() a process graphed {g_walls} s, eager "
+            f"{e_walls} s {card}")
+        examples_compiled(card, tmp)
 
 
 def main() -> int:
@@ -3162,6 +3620,10 @@ def main() -> int:
     # -- phase 11: the compiled step against the eager one ----------------
     compiled_phase(paths, card)
     phase_done(11)
+
+    # -- phase 12: the multi-device steps compiled -------------------------
+    compiled_lanes_phase(paths, card)
+    phase_done(12)
     log(f"total: {time.perf_counter() - t_run:.1f} s wall")
 
     rows = []

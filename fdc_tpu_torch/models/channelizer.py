@@ -696,11 +696,16 @@ class FrequencyDomainChannelizer(nn.Module):
         self._carry = install_carry(
             (self._jit_step, self._jit_step_spectra), self._carry, carry)
 
+    def _graphed(self) -> bool:
+        """Whether the step runs compiled: ``compile_step``, the class's
+        or the instance's."""
+        return self.compile_step
+
     def _run_step(self, compiled: CompiledStep, chunk: np.ndarray):
         """One batch (host samples or spectrum rows) through ``compiled``
         at the stream's cursor (eagerly where the class opts out);
         returns the step's outputs."""
-        step = compiled if self.compile_step else compiled.eager
+        step = compiled if self._graphed() else compiled.eager
         self._carry, out = step(self._carry, torch.from_numpy(chunk),
                                 self._t0)
         return out

@@ -31,6 +31,12 @@ events equal the single-process pipeline's.
 
 Scope: ``process`` (sample mode) is distributed; ``flush`` and the
 finalize batches run owner-local, and ``process_spectra`` is refused.
+
+Both ends run the pipeline's compiled stages (JAX: the jitted stages,
+``parallel/hostpipe.py:369,387,513,542``): the owner's B ring holds
+``window * n_hosts`` slots (its consume frontier lags by that many
+batches), a worker's A / C rings two (it ships a batch's outputs before
+its slot runs again).
 """
 
 from __future__ import annotations
@@ -239,6 +245,8 @@ class HostPipelineOwner(PipelineChannelizer):
                  n_workers: int = 1, port: int = 0,
                  bind_addr: str = "127.0.0.1", timeout: float = 240.0,
                  **kwargs):
+        # the stage rings are sized by the hosts (_ring_depths)
+        self.n_hosts = int(n_workers) + 1
         super().__init__(config, **kwargs)
         if self._owner_groups or self.shard_time > 1:
             raise ValueError(
@@ -248,7 +256,6 @@ class HostPipelineOwner(PipelineChannelizer):
             )
         if n_workers < 1:
             raise ValueError("n_workers must be >= 1")
-        self.n_hosts = n_workers + 1
         self.timeout = float(timeout)
         self._lsock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -257,6 +264,11 @@ class HostPipelineOwner(PipelineChannelizer):
         self.port = self._lsock.getsockname()[1]
         self._conns: List[Optional[_WorkerConn]] = [None] * n_workers
         self._local_only = False
+
+    def _ring_depths(self):
+        # up to window * n_hosts batches in flight, about window of them
+        # the owner's own, all of which may run on one lane
+        return self.window, self.window * self.n_hosts
 
     def accept_workers(self):
         """Block until every worker has connected and identified itself
@@ -319,13 +331,8 @@ class HostPipelineOwner(PipelineChannelizer):
             host = b % self.n_hosts
             if host == 0:
                 lane = self.worker_lanes[b % len(self.worker_lanes)]
-                (out_static, pa_powers, pa_ext, seg_powers, seg_packed,
-                 spec_ext, dbgb) = self._pipe_front(
-                    lane, chunk, self._t0, self._take_override())
-                scans, extracts, done = self._pipe_scan_extract(
-                    lane, pa_powers, seg_packed, spec_ext)
-                parts = (out_static, pa_ext, seg_powers, dbgb, scans,
-                         extracts, self._t0, done)
+                parts = self._dispatch([lane], self._sample_runs(1, chunk),
+                                       self._t0)
             else:
                 # the owner still advances the framing tail so its own
                 # batches stay continuous
@@ -358,11 +365,10 @@ class HostPipelineOwner(PipelineChannelizer):
         with self._on(0):
             # carry_from_numpy copies: the decoded arrays are read-only
             # views of the received bytes
-            pa_o = None if pa is None else carry_from_numpy(pa, dev)
-            segk_o = carry_from_numpy(packs["seg_packed"], dev)
-            carry = dict(self._carry)
-            scans = self._scan_detections(carry, pa_o, segk_o)
-            self._carry = carry
+            pa_o = None if pa is None else [carry_from_numpy(pa, dev)]
+            segk_o = [carry_from_numpy(packs["seg_packed"], dev)]
+        scans = self._scan_parts(pa_o, segk_o)
+        with self._on(0):
             states = [_to_numpy(st) for st, _ in scans["segs"]]
             plans = [
                 {k: _to_numpy(so[k])
@@ -439,6 +445,10 @@ class HostPipelineWorker(PipelineChannelizer):
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         _send_msg(self._sock, "HELLO", self.host_id, self.config.to_json())
 
+    def _ring_depths(self):
+        # the ship window of 2: one batch unshipped when the next starts
+        return 2, 1
+
     def close(self):
         try:
             _send_msg(self._sock, "BYE", -1, None)
@@ -467,8 +477,10 @@ class HostPipelineWorker(PipelineChannelizer):
             lane = self.worker_lanes[(b // self.n_hosts)
                                      % len(self.worker_lanes)]
             dev = self.devices[lane]
+            slot = self._next_slot(lane, len(self._jit_front[lane]))
+            ((host_in, _),) = self._sample_runs(1, chunk)
             (out_static, pa_powers, pa_ext, seg_powers, seg_packed,
-             spec_ext, dbgb) = self._pipe_front(lane, chunk, self._t0)
+             spec_ext, dbgb) = self._front(lane, slot, host_in, self._t0)
             with self._on(lane):
                 packs = {"pa_powers": _to_numpy(pa_powers),
                          "seg_packed": _to_numpy(list(seg_packed))}
@@ -478,11 +490,10 @@ class HostPipelineWorker(PipelineChannelizer):
                 raise ConnectionError(
                     f"expected PLANS for batch {b}, got {kind} {pb}"
                 )
-            rep = self._replicas[dev]
             with self._on(lane):
                 states = carry_from_numpy(plans_msg["states"], dev)
                 plans = carry_from_numpy(plans_msg["plans"], dev)
-                extracts = rep._extract_slots_all(spec_ext, states, plans)
+            extracts = self._slots_on(lane, slot, spec_ext, states, plans)
             inflight.append((b, lane, out_static, pa_ext, seg_powers, dbgb,
                              extracts))
             self._t0 += cfg.batch_blocks

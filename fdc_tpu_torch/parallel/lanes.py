@@ -12,7 +12,13 @@ per-time-run detection statistics into the batch layout the scans read.
 Ordering: a lane that reads what another lane made first waits for that
 lane's stream (``Stream.wait_stream``) and records the tensor on its own
 stream (``Tensor.record_stream``: the caching allocator would otherwise
-hand the memory out again while the reader still runs).
+hand the memory out again while the reader still runs). Lane ``None`` is
+the caller's current stream.
+
+Compiled steps (``runtime.compiled``): a step that runs on several
+lanes forks their streams from the caller's stream first and joins them
+back before it returns, so one CUDA graph captures every lane's part and
+replays it on the caller's stream; its lanes must be streams of one card.
 """
 
 from __future__ import annotations
@@ -30,8 +36,10 @@ from fdc_tpu_torch.models.segment_detection import (
     scan_slots_multi,
 )
 from fdc_tpu_torch.ops.detect import pack_offsets
+from fdc_tpu_torch.runtime.compiled import CaptureError
 
-__all__ = ["Lanes", "lane_devices", "tree_map", "leaves", "merge_rows"]
+__all__ = ["Lanes", "lane_devices", "tree_map", "leaves", "merge_rows",
+           "join_packs"]
 
 
 def lane_devices(devices) -> List[torch.device]:
@@ -91,6 +99,26 @@ def merge_rows(parts):
     return torch.cat(pieces, dim=1)
 
 
+def join_packs(parts):
+    """The candidate packs of consecutive time runs (per run, its G
+    [b, 7K] packs) joined into G [B, 7K] views of one flat buffer at
+    kernel C's pack offsets (``lifecycle.seg_table``), on the caller's
+    stream, so kernel C reads them in place."""
+    ks = [p.shape[1] // 7 for p in parts[0]]
+    runs = [p[0].shape[0] for p in parts]
+    nb = sum(runs)
+    offs, total = pack_offsets(nb, ks)
+    flat = torch.empty(total, dtype=torch.int32, device=parts[0][0].device)
+    views = [flat.as_strided((nb, 7 * k), (7 * k, 1), o)
+             for o, k in zip(offs, ks)]
+    row = 0
+    for packs, n in zip(parts, runs):
+        for v, p in zip(views, packs):
+            v[row:row + n].copy_(p)
+        row += n
+    return views
+
+
 class Lanes:
     """Mixin of a :class:`FrequencyDomainChannelizer` subclass that runs
     on ``self.devices`` (set by :meth:`_init_lanes`). Stage B's segment
@@ -139,17 +167,52 @@ class Lanes:
         rep.__dict__["device"] = device
         return rep
 
+    def _graphed(self, lanes=None) -> bool:
+        """Whether the steps run compiled (``compile_step``, the class's or
+        the instance's). A graph that spans ``lanes`` (default: every
+        lane) holds the streams of one card: lanes on several CUDA
+        devices raise :class:`CaptureError` (no eager fallback)."""
+        if not self.compile_step:
+            return False
+        lanes = range(len(self.devices)) if lanes is None else lanes
+        cards = {self.devices[ln] for ln in lanes
+                 if self.devices[ln].type == "cuda"}
+        if len(cards) > 1:
+            raise CaptureError(
+                f"one CUDA graph would span the lanes of {len(cards)} "
+                f"devices ({sorted(map(str, cards))}); a graph holds one "
+                f"card's streams: set compile_step to False to run the "
+                f"step eagerly")
+        return True
+
+    def _stream(self, lane):
+        """The lane's stream; lane None: the caller's current stream (None
+        on the CPU)."""
+        if lane is not None:
+            return self._streams[lane]
+        d = self.devices[0]
+        return torch.cuda.current_stream(d) if d.type == "cuda" else None
+
     def _on(self, lane):
-        """Run on the lane's stream (CUDA) or as it is (CPU)."""
-        s = self._streams[lane]
+        """Run on the lane's stream (CUDA) or as it is (CPU, lane None)."""
+        s = None if lane is None else self._streams[lane]
         return contextlib.nullcontext() if s is None else torch.cuda.stream(s)
 
+    def _fork(self, lanes):
+        """The lanes' streams wait for the caller's (inside a capture: they
+        join it)."""
+        for ln in lanes:
+            s = self._streams[ln]
+            if s is not None:
+                s.wait_stream(torch.cuda.current_stream(s.device))
+
     def _handoff(self, tree, src, dst):
-        """Tensors made on lane ``src``, readable on lane ``dst``: moved to
-        its device (the copy ordered on ``src``), ``dst`` waiting for what
-        ``src`` has enqueued, and each recorded on ``dst``'s stream."""
+        """Tensors made on lane ``src`` (None: the caller's stream),
+        readable on lane ``dst``: moved to its device (the copy ordered on
+        ``src``), ``dst`` waiting for what ``src`` has enqueued, and each
+        recorded on ``dst``'s stream."""
         dev = self.devices[dst]
-        s_src, s_dst = self._streams[src], self._streams[dst]
+        s_src, s_dst = self._stream(src), self._streams[dst]
         with self._on(src):
             moved = tree_map(lambda t: t.to(dev), tree)
         if s_dst is not None and s_dst is not s_src:
@@ -172,11 +235,12 @@ class Lanes:
                     t.record_stream(s)
         return tree
 
-    def _to_caller(self, tree):
-        """The caller's streams wait for every lane, and every CUDA leaf
-        of ``tree`` is recorded on its device's current stream (outputs
-        made on the lanes, read by the caller)."""
-        for s in self._streams:
+    def _to_caller(self, tree, lanes=None):
+        """The caller's streams wait for every lane (of ``lanes``), and
+        every CUDA leaf of ``tree`` is recorded on its device's current
+        stream (outputs made on the lanes, read by the caller)."""
+        for ln in range(len(self._streams)) if lanes is None else lanes:
+            s = self._streams[ln]
             if s is not None:
                 torch.cuda.current_stream(s.device).wait_stream(s)
         for t in leaves(tree):
@@ -211,27 +275,12 @@ class Lanes:
 
     def _gather_packs(self, parts, dst):
         """The candidate packs of consecutive time runs (``parts``: per
-        run, (lane, the run's G pack views)) joined into G [B, 7K] views
-        of one flat buffer on lane ``dst`` at kernel C's pack offsets
-        (``lifecycle.seg_table``), so kernel C reads them in place: each
-        run's rows are copied straight into their place."""
-        ks = [p.shape[1] // 7 for p in parts[0][1]]
-        runs = [p[0].shape[0] for _, p in parts]
-        nb = sum(runs)
-        offs, total = pack_offsets(nb, ks)
+        run, (lane, the run's G pack views)) joined on lane ``dst``
+        (:func:`join_packs`)."""
+        moved = [self._handoff(list(packs), lane, dst)
+                 for lane, packs in parts]
         with self._on(dst):
-            flat = torch.empty(total, dtype=torch.int32,
-                               device=self.devices[dst])
-        views = [flat.as_strided((nb, 7 * k), (7 * k, 1), o)
-                 for o, k in zip(offs, ks)]
-        row = 0
-        for (lane, packs), n in zip(parts, runs):
-            moved = self._handoff(list(packs), lane, dst)
-            with self._on(dst):
-                for v, p in zip(views, moved):
-                    v[row:row + n].copy_(p)
-            row += n
-        return views
+            return join_packs(moved)
 
     def _gather_rows(self, parts, dst):
         """Tensors of consecutive time runs (``parts``: (lane, [n, ...]))

@@ -41,6 +41,18 @@ the end of stage C, which follows every stage it waited for. The host
 keeps up to ``window`` batches in flight and consumes them in order, so
 it never blocks on the newest batch.
 
+Compiled stages (JAX: ``parallel/pipeline.py:258-261`` jits each stage):
+stage A (``_jit_front``, ``_jit_front_spec``) and stage C
+(``_jit_slots``) are compiled steps of their lane, replayed on its
+stream; stage B (``_jit_scan``) one of the owner lane, its graph forking
+the owner groups' lanes. Each is a ring (``runtime.compiled``): a lane
+keeps ``ceil(window / len(groups))`` slots of A and C (slot k of both in
+one graph pool), B ``window`` slots sharing the carry, so no batch's
+outputs are overwritten before the host consumed them. The done events
+are recorded between replays, never inside a graph. The ``compile_step``
+attribute (the class's or the instance's) runs the same stage functions
+eagerly.
+
 Results equal :class:`FrequencyDomainChannelizer`'s: stage A recomputes
 the same spectra (on the card the reach-back row is kernel F's [1, N]
 call, bit-equal to row B of the previous batch's [B, N] call), stage B
@@ -59,10 +71,21 @@ from fdc_tpu_torch.config import ChannelizerConfig
 from fdc_tpu_torch.models.channelizer import (
     FrequencyDomainChannelizer,
     _pairs_to_complex,
+    _to_host,
 )
 from fdc_tpu_torch.ops.fft import forward_spectrum
 from fdc_tpu_torch.ops.framing import frame_blocks
-from fdc_tpu_torch.parallel.lanes import Lanes, lane_devices, merge_rows
+from fdc_tpu_torch.parallel.lanes import (
+    Lanes,
+    join_packs,
+    lane_devices,
+    merge_rows,
+)
+from fdc_tpu_torch.runtime.compiled import (
+    GraphPool,
+    compiled_ring,
+    install_carry,
+)
 
 __all__ = ["PipelineChannelizer", "lane_devices"]
 
@@ -71,10 +94,6 @@ def _complex_to_pairs(z: np.ndarray) -> np.ndarray:
     """complex64 [...] -> float32 [..., 2] pairs."""
     z = np.ascontiguousarray(z, np.complex64)
     return z.view(np.float32).reshape(*z.shape, 2)
-
-
-def _host(t):
-    return t if isinstance(t, np.ndarray) else t.cpu().numpy()
 
 
 class PipelineChannelizer(Lanes, FrequencyDomainChannelizer):
@@ -95,11 +114,6 @@ class PipelineChannelizer(Lanes, FrequencyDomainChannelizer):
     and none is needed, since the host holds the input spectra; each
     batch ships with the previous batch's last spectrum row prepended.
     """
-
-    # its stages run on several lanes and its outputs are consumed a batch
-    # or two late, past the next replay of a compiled step: they stay
-    # eager (JAX: parallel/pipeline.py:258-261 jits each stage)
-    compile_step = False
 
     def __init__(self, config: Optional[ChannelizerConfig] = None,
                  devices: Optional[List] = None, window: int = 0,
@@ -167,6 +181,7 @@ class PipelineChannelizer(Lanes, FrequencyDomainChannelizer):
         # vector mode: the previous batch's last spectrum row (float
         # pairs), prepended to the next batch
         self._prev_specf = np.zeros((cfg.blocksize, 2), np.float32)
+        self._build_stages()
 
     def reset(self):
         super().reset()
@@ -175,11 +190,204 @@ class PipelineChannelizer(Lanes, FrequencyDomainChannelizer):
         self._ov_row = np.zeros((cfg.blocksize, 2), np.float32)
         self._ov_flag = False
         self._prev_specf = np.zeros((cfg.blocksize, 2), np.float32)
+        # the stages' graphs and their pools go with the stream
+        for step in self._stage_steps():
+            step.release()
+        self._uses = {}
+
+    # -- the compiled stages --------------------------------------------------------
+
+    def _ring_depths(self):
+        """(slots of a worker lane's stage A / C rings, slots of stage B's
+        ring): batch b takes its lane's next slot and B's; with the lanes
+        taking batches in turn, a slot runs again only after ``window``
+        batches, by when the host has consumed its outputs."""
+        return -(-self.window // len(self.groups)), self.window
+
+    def _build_stages(self):
+        """The compiled stages (JAX: parallel/pipeline.py:258-261): for each
+        worker lane, rings of stage A (samples, spectra) and stage C on its
+        device, slot k of all three in one graph pool (they run in turn on
+        the lane's stream); the owner lane's ring of stage B, a pool a
+        slot, every slot advancing one static carry."""
+        d_lane, d_scan = self._ring_depths()
+        self._jit_front, self._jit_front_spec, self._jit_slots = {}, {}, {}
+        for lane in self.worker_lanes:
+            dev = self.devices[lane]
+            pools = [GraphPool() for _ in range(d_lane)]
+            self._jit_front[lane] = compiled_ring(
+                self._stage_front, dev, d_lane, pools=pools)
+            self._jit_front_spec[lane] = compiled_ring(
+                self._stage_front_spec, dev, d_lane, pools=pools)
+            self._jit_slots[lane] = compiled_ring(
+                self._stage_slots, dev, d_lane, pools=pools, takes_t0=False)
+        self._jit_scan = compiled_ring(self._stage_scan, self.device,
+                                       max(1, d_scan), takes_t0=False)
+        self._uses = {}  # calls of each ring so far (its next slot)
+
+    def _stage_steps(self):
+        rings = (*self._jit_front.values(), *self._jit_front_spec.values(),
+                 *self._jit_slots.values(), self._jit_scan)
+        return [step for ring in rings for step in ring]
+
+    def _next_slot(self, key, depth):
+        n = self._uses.get(key, 0)
+        self._uses[key] = n + 1
+        return n % depth
+
+    def _owner_lanes(self):
+        return sorted({0, *(lane for lane, _ in self._owner_groups)})
+
+    def _set_carry(self, carry):
+        self._carry = install_carry(self._jit_scan, self._carry, carry)
+
+    def _stage(self, ring, slot, lanes, carry, *args):
+        """One stage call on the caller's stream: slot ``slot`` of ``ring``
+        replayed (captured at its first call a shape), its graph spanning
+        ``lanes``; the stage function run eagerly where ``compile_step``
+        is off."""
+        step = ring[slot]
+        if self._graphed(lanes):
+            return step(carry, *args)
+        return step.eager(carry, *args)
+
+    # -- stage functions (each runs on the caller's stream) ---------------------
+
+    def _stage_front(self, _, lane, x, ov_row, ov_flag, t0):
+        """Stage A: framing and kernel F over the host-assembled run ``x``
+        ([ovllen + (b + 1) * inplen] complex64: history, the reach-back
+        block, the run's b blocks), the reach-back row (kernel F's [1, N]
+        call) replaced by ``ov_row`` where ``ov_flag`` (a resume from a
+        plain checkpoint; JAX's ``pipe_front``, ``jnp.where``), then the
+        static extraction at global block ``t0``."""
+        cfg = self.config
+        blocks, _ = frame_blocks(x[cfg.ovllen:], x[:cfg.ovllen],
+                                 cfg.blocksize)
+        spec_ext = torch.empty(blocks.shape, dtype=torch.complex64,
+                               device=x.device)
+        forward_spectrum(blocks[:1], use_mxu=cfg.use_mxu_fft,
+                         out=spec_ext[:1])
+        spec_ext[:1] = torch.where(ov_flag, ov_row[None], spec_ext[:1])
+        forward_spectrum(blocks[1:], use_mxu=cfg.use_mxu_fft,
+                         out=spec_ext[1:])
+        return None, self._stage_static(lane, spec_ext, t0)
+
+    def _stage_front_spec(self, _, lane, spec_ext, t0):
+        """Stage A in vector mode: the host's [b + 1, N] spectra, row 0
+        the reach-back row."""
+        return None, self._stage_static(lane, spec_ext, t0)
+
+    def _stage_static(self, lane, spec_ext, t0):
+        rep = self._replicas[self.devices[lane]]
+        spec = spec_ext[1:]
+        out, pa_powers, pa_ext, seg_powers, seg_packed = (
+            rep._extract_static(spec, spec_ext, t0))
+        dbg = torch.view_as_real(spec) if self.config.debug else None
+        return out, pa_powers, pa_ext, seg_powers, seg_packed, spec_ext, dbg
+
+    def _stage_scan(self, carry, pa_parts, pack_parts):
+        """Stage B from the time runs' powers and packs (a run a lane of
+        the batch's group): the runs joined in kernel C's layout, then the
+        owner groups' chains, or one kernel C (or D) launch on lane 0,
+        their lanes forked from the caller's stream and joined back.
+        Returns (the new carry, the scans' flags, tables and plans)."""
+        pa = None if pa_parts is None else (
+            torch.cat(pa_parts) if len(pa_parts) > 1 else pa_parts[0])
+        packs = join_packs(pack_parts) if len(self.segments) else []
+        lanes = self._owner_lanes()
+        self._fork(lanes)
+        carry, scans = self._scan(carry, None, pa, packs)
+        self._to_caller((carry, scans), lanes)
+        return carry, scans
+
+    def _stage_slots(self, _, lane, spec_ext, states, plans):
+        """Stage C: every segment's planned slots over ``spec_ext``."""
+        rep = self._replicas[self.devices[lane]]
+        return None, rep._extract_slots_all(spec_ext, states, plans)
+
+    # -- one batch ------------------------------------------------------------------
+
+    def _front(self, lane, slot, host, t0):
+        """Stage A on ``lane`` from its host inputs (``(x, ov_row,
+        ov_flag)``, or ``(spec_ext,)`` in vector mode) through slot
+        ``slot`` of its ring; the stage A tuple (out, pa_powers, pa_ext,
+        seg_powers, seg_packed, spec_ext, dbg)."""
+        ring = (self._jit_front if len(host) == 3
+                else self._jit_front_spec)[lane]
+        with self._on(lane):
+            return self._stage(ring, slot, [lane], None, lane, *host, t0)[1]
+
+    def _scan_parts(self, pa_parts, pack_parts):
+        """Stage B on the owner lane (its parts already there) through the
+        ring's next slot; the scans, ready in the owner lane's stream."""
+        slot = self._next_slot("scan", len(self._jit_scan))
+        with self._on(0):
+            self._carry, scans = self._stage(
+                self._jit_scan, slot, self._owner_lanes(), self._carry,
+                pa_parts, pack_parts)
+        return scans
+
+    def _slots_on(self, lane, slot, spec_ext, states, plans):
+        """Stage C on ``lane`` (its inputs already there) through slot
+        ``slot`` of its ring."""
+        with self._on(lane):
+            return self._stage(self._jit_slots[lane], slot, [lane], None,
+                               lane, spec_ext, states, plans)[1]
+
+    def _dispatch(self, lanes, runs, t0):
+        """Stages A, B and C of one batch on a worker group's lanes (one
+        lane unless shard_time > 1); ``runs``: each lane's (host inputs,
+        its first block's offset in the batch). Returns the in-flight
+        entry; a group's per-lane row families are merged on the host when
+        the batch is consumed."""
+        slots = [self._next_slot(ln, len(self._jit_front[ln]))
+                 for ln in lanes]
+        fronts = [self._front(ln, k, host, t0 + off)
+                  for ln, k, (host, off) in zip(lanes, slots, runs)]
+        pa = ([self._handoff(f[1], ln, 0) for ln, f in zip(lanes, fronts)]
+              if self.power_bank else None)
+        packs = [self._handoff(list(f[4]), ln, 0)
+                 for ln, f in zip(lanes, fronts)]
+        scans = self._scan_parts(pa, packs)
+        states = [st for st, _ in scans["segs"]]
+        plans = [{k: so[k] for k in ("slot_ids", "slot_ids_narrow")
+                  if k in so} for _, so in scans["segs"]]
+        extracts = []
+        for ln, k, f in zip(lanes, slots, fronts):
+            st, pl = self._handoff((states, plans), 0, ln)
+            extracts.append(self._slots_on(ln, k, f[5], st, pl))
+        done = self._batch_done(lanes)
+        if len(lanes) == 1:
+            out, _, pa_ext, seg_powers, _, _, dbg = fronts[0]
+            return (out, pa_ext, seg_powers, dbg, scans, extracts[0], t0,
+                    done)
+        return ([f[0] for f in fronts], [f[2] for f in fronts],
+                [f[3] for f in fronts], [f[6] for f in fronts], scans,
+                extracts, t0, done)
+
+    def _sample_runs(self, n_runs, chunk):
+        """The stage A inputs of a batch's ``n_runs`` time runs from the
+        host: the sample line (the tail, then ``chunk``) cut into runs of
+        ovllen + (b + 1) * inplen samples, run t starting t*b blocks in
+        (its first block recomputes the previous run's last spectrum row:
+        JAX's ``_shard_inputs``), the first with the resume override; the
+        tail moves past ``chunk``."""
+        cfg = self.config
+        line = np.concatenate([self._tail, chunk])
+        self._advance_tail(chunk)
+        row, flag = self._take_override()
+        b = len(chunk) // cfg.inplen // n_runs
+        n = cfg.ovllen + (b + 1) * cfg.inplen
+        none = (torch.zeros_like(row), torch.tensor(False))
+        return [((torch.from_numpy(line[t * b * cfg.inplen:][:n]),
+                  *((row, flag) if t == 0 else none)), t * b)
+                for t in range(n_runs)]
 
     def _batch_done(self, lanes):
         """An event a worker lane after every stage of its batch: the lane
-        waits for the owner lanes (their flags and tables), then records.
-        None on CPU lanes."""
+        waits for the owner lanes (their flags and tables), then records,
+        between the replays (an event recorded inside a graph cannot be
+        waited on from the host). None on CPU lanes."""
         events = []
         for lane in lanes:
             s = self._streams[lane]
@@ -194,124 +402,6 @@ class PipelineChannelizer(Lanes, FrequencyDomainChannelizer):
             events.append(ev)
         return events or None
 
-    # -- stages -------------------------------------------------------------------
-
-    def _frame_front(self, lane, tail, chunk, lo, n_blocks, ov_row):
-        """Framing and kernel F on ``lane``: the n_blocks + 1 blocks whose
-        samples start at ``lo`` on the line ``tail`` + ``chunk`` (the
-        first block, the reach-back block, is the one before the run),
-        both parts copied straight into one buffer; kernel F writes the
-        reach-back row (or the resume override ``ov_row``, [N, 2] pairs)
-        and the body into one spec_ext."""
-        cfg = self.config
-        dev = self.devices[lane]
-        n = cfg.ovllen + (n_blocks + 1) * cfg.inplen
-        k = min(max(len(tail) - lo, 0), n)  # samples from the tail
-        c0 = lo + k - len(tail)
-        with self._on(lane):
-            x = torch.empty(n, dtype=torch.complex64, device=dev)
-            if k:
-                x[:k].copy_(torch.from_numpy(tail[lo:lo + k]))
-            if n > k:
-                x[k:].copy_(torch.from_numpy(chunk[c0:c0 + n - k]))
-            blocks, _ = frame_blocks(x[cfg.ovllen:], x[:cfg.ovllen],
-                                     cfg.blocksize)
-            spec_ext = torch.empty(blocks.shape, dtype=torch.complex64,
-                                   device=dev)
-            if ov_row is None:
-                forward_spectrum(blocks[:1], use_mxu=cfg.use_mxu_fft,
-                                 out=spec_ext[:1])
-            else:
-                spec_ext[0] = torch.from_numpy(
-                    _pairs_to_complex(ov_row)).to(dev)
-            forward_spectrum(blocks[1:], use_mxu=cfg.use_mxu_fft,
-                             out=spec_ext[1:])
-        return spec_ext
-
-    def _pipe_front(self, lane, chunk, t0, ov_row=None):
-        """Stage A on ``lane`` from host samples: the tail and ``chunk``
-        frame B + 1 blocks (:meth:`_frame_front`), and the tail moves
-        past ``chunk``."""
-        tail = self._tail
-        self._advance_tail(chunk)
-        spec_ext = self._frame_front(lane, tail, chunk, 0,
-                                     self.config.batch_blocks, ov_row)
-        return self._pipe_static(lane, spec_ext, t0)
-
-    def _pipe_front_group(self, lanes, chunk, t0, ov_row=None):
-        """Stage A over a group's lanes: lane t frames blocks [t*b - 1,
-        (t+1)*b) of the batch from its own run of the sample line (JAX's
-        ``_shard_inputs``) and extracts at its global block offset; only
-        the first run takes the resume override. One stage A tuple a
-        lane."""
-        cfg = self.config
-        tail = self._tail
-        self._advance_tail(chunk)
-        bl = self.b_local
-        return [self._pipe_static(
-            lane,
-            self._frame_front(lane, tail, chunk, t * bl * cfg.inplen, bl,
-                              ov_row if t == 0 else None),
-            t0 + t * bl) for t, lane in enumerate(lanes)]
-
-    def _pipe_front_spec(self, lane, spec_ext_host, t0):
-        """Stage A in vector mode: the host's [B + 1, N] spectra, row 0
-        the previous batch's last row."""
-        with self._on(lane):
-            spec_ext = torch.from_numpy(spec_ext_host).to(self.devices[lane])
-        return self._pipe_static(lane, spec_ext, t0)
-
-    def _pipe_static(self, lane, spec_ext, t0):
-        rep = self._replicas[self.devices[lane]]
-        with self._on(lane):
-            spec = spec_ext[1:]
-            out, pa_powers, pa_ext, seg_powers, seg_packed = (
-                rep._extract_static(spec, spec_ext, t0))
-            dbg = torch.view_as_real(spec) if self.config.debug else None
-        return out, pa_powers, pa_ext, seg_powers, seg_packed, spec_ext, dbg
-
-    def _pipe_scan_extract(self, lane, pa_powers, seg_packed, spec_ext):
-        """Stages B and C for one batch: the owner lanes' scans, then the
-        slot extraction back on the batch's worker lane under the owners'
-        tables and plans. Returns (scans, extracts, the batch's done
-        events or None)."""
-        self._carry, scans = self._scan(self._carry, lane, pa_powers,
-                                        seg_packed)
-        return scans, self._pipe_slots(lane, spec_ext, scans), (
-            self._batch_done([lane]))
-
-    def _pipe_slots(self, lane, spec_ext, scans):
-        """Stage C on ``lane``: every segment's planned slots over
-        ``spec_ext``."""
-        states, plans = [], []
-        for i, (st, so) in enumerate(scans["segs"]):
-            plan = {k: so[k] for k in ("slot_ids", "slot_ids_narrow")
-                    if k in so}
-            st, plan = self._handoff((st, plan), self._seg_lane[i], lane)
-            states.append(st)
-            plans.append(plan)
-        rep = self._replicas[self.devices[lane]]
-        with self._on(lane):
-            return rep._extract_slots_all(spec_ext, states, plans)
-
-    def _pipe_group(self, lanes, fronts, t0):
-        """Stages B and C for a group's batch (``fronts``: each lane's
-        stage A): the runs' powers and packs joined on the scan lane in
-        kernel C's layout, the scans, each lane's slot extraction. Returns
-        the in-flight entry; its per-lane row families are merged on the
-        host when the batch is consumed."""
-        parts = list(zip(lanes, fronts))
-        pa_powers = (self._gather_rows([(ln, f[1]) for ln, f in parts], 0)
-                     if self.power_bank else None)
-        seg_packed = (self._gather_packs([(ln, f[4]) for ln, f in parts], 0)
-                      if len(self.segments) else [])
-        self._carry, scans = self._scan(self._carry, 0, pa_powers,
-                                        seg_packed)
-        extracts = [self._pipe_slots(ln, f[5], scans) for ln, f in parts]
-        return ([f[0] for f in fronts], [f[2] for f in fronts],
-                [f[3] for f in fronts], [f[6] for f in fronts], scans,
-                extracts, t0, self._batch_done(lanes))
-
     def _join_group(self, parts):
         """A group batch's per-lane stage outputs joined on the host into
         the plain step's layout: streams and powers concatenated over the
@@ -321,18 +411,18 @@ class PipelineChannelizer(Lanes, FrequencyDomainChannelizer):
         out = {}
         if self.throughput:
             out["throughput_buckets"] = [
-                np.concatenate([_host(o["throughput_buckets"][k])
+                np.concatenate([_to_host(o["throughput_buckets"][k])
                                 for o in outs], axis=1)
                 for k in range(len(self.throughput.buckets))]
         pa_ext = None
         if self.power_bank:
-            pa_ext = {w: merge_rows([_host(p[w]) for p in pa_exts])
+            pa_ext = {w: merge_rows([_to_host(p[w]) for p in pa_exts])
                       for w in pa_exts[0]}
-        seg_p = [np.concatenate([_host(p[i]) for p in seg_powers])
+        seg_p = [np.concatenate([_to_host(p[i]) for p in seg_powers])
                  for i in range(len(self.segments))]
-        dbg = (np.concatenate([_host(d) for d in dbgs])
+        dbg = (np.concatenate([_to_host(d) for d in dbgs])
                if self.config.debug else None)
-        ext = [{k: merge_rows([_host(e[i][k]) for e in extracts])
+        ext = [{k: merge_rows([_to_host(e[i][k]) for e in extracts])
                 for k in extracts[0][i]} for i in range(len(self.segments))]
         return out, pa_ext, seg_p, dbg, scans, ext, t0_b, done
 
@@ -361,38 +451,27 @@ class PipelineChannelizer(Lanes, FrequencyDomainChannelizer):
                       else np.concatenate([self._tail, chunk])[-n:])
 
     def _take_override(self):
-        """The resume override row for the next batch, once."""
-        row = self._ov_row if self._ov_flag else None
+        """The resume override of the next batch, once: (the reach-back
+        row [N] complex64, whether it replaces the recomputed one) as host
+        tensors."""
+        flag = self._ov_flag
         self._ov_flag = False
-        return row
+        return (torch.from_numpy(_pairs_to_complex(self._ov_row)),
+                torch.tensor(flag))
 
     # -- pipelined streaming ------------------------------------------------------
 
-    def _dispatch(self, b, front, front_group):
-        """Stages A, B and C of the call's batch number ``b`` on its
-        worker lane or group (``front(b, lane, t0)`` and
-        ``front_group(b, lanes, t0)`` its stage A); the in-flight
-        entry."""
-        t0 = self._t0
-        if self.shard_time > 1:
-            lanes = self.groups[b % len(self.groups)]
-            return self._pipe_group(lanes, front_group(b, lanes, t0), t0)
-        lane = self.worker_lanes[b % len(self.worker_lanes)]
-        (out_static, pa_powers, pa_ext, seg_powers, seg_packed, spec_ext,
-         dbgb) = front(b, lane, t0)
-        scans, extracts, done = self._pipe_scan_extract(
-            lane, pa_powers, seg_packed, spec_ext)
-        return (out_static, pa_ext, seg_powers, dbgb, scans, extracts, t0,
-                done)
-
-    def _run_batches(self, n_batches, front, front_group):
-        """Dispatch ``n_batches`` batches, keeping up to ``window`` in
-        flight, and consume them in order."""
+    def _run_batches(self, n_batches, runs):
+        """Dispatch ``n_batches`` batches over the worker groups in turn
+        (``runs(b, n_lanes)``: batch b's stage A inputs), keeping up to
+        ``window`` in flight, and consume them in order."""
         result = self._new_result()
         dbg = []
         inflight = []
         for b in range(n_batches):
-            inflight.append(self._dispatch(b, front, front_group))
+            lanes = self.groups[b % len(self.groups)]
+            inflight.append(self._dispatch(lanes, runs(b, len(lanes)),
+                                           self._t0))
             self._t0 += self.config.batch_blocks
             if len(inflight) >= self.window:
                 self._consume_pipeline_batch(inflight.pop(0), result, dbg)
@@ -420,15 +499,9 @@ class PipelineChannelizer(Lanes, FrequencyDomainChannelizer):
         n_batches = len(x) // bs
         self._pending = x[n_batches * bs:]
 
-        def chunk(b):
-            return x[b * bs:(b + 1) * bs]
-
         return self._run_batches(
             n_batches,
-            lambda b, lane, t0: self._pipe_front(
-                lane, chunk(b), t0, self._take_override()),
-            lambda b, lanes, t0: self._pipe_front_group(
-                lanes, chunk(b), t0, self._take_override()))
+            lambda b, n: self._sample_runs(n, x[b * bs:(b + 1) * bs]))
 
     def process_spectra(self, spectra: np.ndarray):
         """Pipelined pre-FFT'd vector mode: the batch farm of ``process``
@@ -455,22 +528,15 @@ class PipelineChannelizer(Lanes, FrequencyDomainChannelizer):
         n_batches = spectra.shape[0] // bb
         self._pending_spec = spectra[n_batches * bb:]
 
-        def spec_ext(b):
+        def runs(b, n):
             ext = np.concatenate([_pairs_to_complex(self._prev_specf)[None],
                                   spectra[b * bb:(b + 1) * bb]])
             self._prev_specf = _complex_to_pairs(ext[-1])
-            return ext
+            bl = bb // n
+            return [((torch.from_numpy(ext[t * bl:(t + 1) * bl + 1]),),
+                     t * bl) for t in range(n)]
 
-        def group(b, lanes, t0):
-            ext, bl = spec_ext(b), self.b_local
-            return [self._pipe_front_spec(lane, ext[t * bl:(t + 1) * bl + 1],
-                                          t0 + t * bl)
-                    for t, lane in enumerate(lanes)]
-
-        return self._run_batches(
-            n_batches,
-            lambda b, lane, t0: self._pipe_front_spec(lane, spec_ext(b), t0),
-            group)
+        return self._run_batches(n_batches, runs)
 
     # -- checkpoint integration -----------------------------------------------------
 
@@ -496,7 +562,8 @@ class PipelineChannelizer(Lanes, FrequencyDomainChannelizer):
                 carry["hist"] = t[-cfg.ovllen:].clone()
                 carry["prev_spec"] = forward_spectrum(
                     t[None], use_mxu=cfg.use_mxu_fft)[0]
-            self._carry = carry
+            # written into the static carry the stage B graphs read
+            self._carry = install_carry(self._jit_scan, self._carry, carry)
         return {
             "pipeline_tail": self._tail.copy(),
             "pipeline_prev_specf": self._prev_specf.copy(),

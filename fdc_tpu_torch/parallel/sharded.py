@@ -32,11 +32,23 @@ duplicated reach-back row dropped), so the host emission is shared, and
 the carry is the plain carry: checkpoints cross-restore between plain
 and sharded channelizers of either package.
 
+The streaming API runs the step compiled, as ``fdc_tpu`` jits its
+shard_map step (``parallel/sharded.py:168-169``): ``_jit_step`` and
+``_jit_step_spectra`` capture the whole step, every rank's stream forked
+from the capturing stream and joined back (``parallel.lanes``), as one
+CUDA graph a batch shape, replayed on the caller's stream. The ranks
+must be streams of one card.
+
 With several processes (``parallel.multihost``) each holds a contiguous
 run of the time ranks; the history tail, the reach-back row, the
 detection statistics and the step outputs cross process boundaries
 through the process group, so every process runs the same scans and
-emits the same events.
+emits the same events. Those collectives stage their tensors on the
+host, which no CUDA graph holds: the step is a generator that yields at
+each of them (``runtime.compiled``'s segments), so a mesh of several
+processes replays it as one graph a segment between the gathers (the
+history tail, the reach-back row, the detection statistics, the
+outputs), every process in step.
 """
 
 from __future__ import annotations
@@ -53,6 +65,8 @@ from fdc_tpu_torch.ops.fft import forward_spectrum
 from fdc_tpu_torch.ops.framing import frame_blocks
 from fdc_tpu_torch.parallel.lanes import Lanes, merge_rows
 from fdc_tpu_torch.parallel.mesh import CHAN_AXIS, TIME_AXIS, Mesh
+from fdc_tpu_torch.parallel.multihost import allgather
+from fdc_tpu_torch.runtime.compiled import CompiledStep, GraphPool, drive
 
 __all__ = ["ShardedChannelizer", "split_rows"]
 
@@ -75,10 +89,6 @@ class ShardedChannelizer(Lanes, FrequencyDomainChannelizer):
     multiples of ``n_chan`` (as ``fdc_tpu``'s, so the slot tables match
     its sharded ones); channel rows are zero-padded per rank.
     """
-
-    # its step runs over the ranks' streams: it stays eager (JAX:
-    # parallel/sharded.py:168-169 jits the shard_map step)
-    compile_step = False
 
     def __init__(self, config: Optional[ChannelizerConfig] = None,
                  mesh: Mesh = None, **kwargs):
@@ -114,6 +124,13 @@ class ShardedChannelizer(Lanes, FrequencyDomainChannelizer):
         devs = mesh.local_devices
         super().__init__(config, device=devs[0])
         self._init_lanes(devs)
+        # the compiled steps of the generator steps, their gathers across
+        # processes on the host between segments
+        pool = GraphPool()
+        self._jit_step = CompiledStep(self._step_samples, self.device,
+                                      pool=pool, exchange=allgather)
+        self._jit_step_spectra = CompiledStep(
+            self._step_spectra, self.device, pool=pool, exchange=allgather)
         self.b_local = config.batch_blocks // self.n_time
         # with several chan ranks and segments, segment i's chain runs on
         # chan rank i % n_chan of the first local time rank
@@ -190,19 +207,30 @@ class ShardedChannelizer(Lanes, FrequencyDomainChannelizer):
         them, ``multihost.host_local_batch``) on the first rank's device;
         ``t0`` the global index of the batch's first block. Returns
         (new_carry, outputs) in the plain step's layout."""
-        x = self._local_run(x, self.config.inplen, "samples")
-        return self._step(carry, t0, x=x)
+        return drive(self._step_samples(carry, x, t0), allgather)
 
     def _device_step_spectra(self, carry, spec: torch.Tensor, t0: int):
         """Pre-FFT'd step: ``spec`` [B, N] complex64 spectra (or this
         process's run of the rows); the framing history is left as it
         is."""
+        return drive(self._step_spectra(carry, spec, t0), allgather)
+
+    def _step_samples(self, carry, x, t0):
+        """:meth:`_device_step` as a generator yielding at each gather
+        across processes (none with one process)."""
+        x = self._local_run(x, self.config.inplen, "samples")
+        return (yield from self._step(carry, t0, x=x))
+
+    def _step_spectra(self, carry, spec, t0):
+        """:meth:`_device_step_spectra` as a generator."""
         spec = self._local_run(spec, 1, "spectrum rows")
-        return self._step(carry, t0, spec_in=spec)
+        return (yield from self._step(carry, t0, spec_in=spec))
 
     def _step(self, carry, t0, x=None, spec_in=None):
-        """The body of both entry points: samples ``x`` or spectra
-        ``spec_in``, this process's run of the batch."""
+        """The body of both entry points (a generator: it yields the
+        tensors of each gather across processes and receives the
+        gathered ones): samples ``x`` or spectra ``spec_in``, this
+        process's run of the batch."""
         cfg = self.config
         nt, b = self.mesh.n_time_local, self.b_local
         self._adopt(carry)
@@ -213,13 +241,14 @@ class ShardedChannelizer(Lanes, FrequencyDomainChannelizer):
         for t in range(nt):
             self._from_caller(spec_in if x is None else x, self._lane(t))
         if x is not None:
-            new_carry["hist"], hist0 = self._boundary(
+            new_carry["hist"], hist0 = yield from self._boundary(
                 x[-cfg.ovllen:].clone(), hist0)
         specs = self._front(x, spec_in, hist0)
         last = self._handoff(specs[-1][b:], self._lane(nt - 1), 0)
         with self._on(0):
             last = last[0].clone()
-        new_carry["prev_spec"], prev0 = self._boundary(last, prev0)
+        new_carry["prev_spec"], prev0 = yield from self._boundary(last,
+                                                                 prev0)
         for t in range(nt):
             lane = self._lane(t)
             row = (self._handoff(prev0, 0, lane) if t == 0 else
@@ -241,11 +270,12 @@ class ShardedChannelizer(Lanes, FrequencyDomainChannelizer):
                         spec_ext[1:], spec_ext, t_first + t * b,
                         detect=(c == 0)))
 
-        pa_powers, seg_packed = self._detection_stats(ranks)
+        pa_powers, seg_packed = yield from self._detection_stats(ranks)
         new_carry, scans = self._scan(new_carry, 0, pa_powers, seg_packed)
         extracts = self._slots(ranks, scans)
         self._to_caller((ranks, extracts, scans, new_carry))
-        return new_carry, self._join(ranks, extracts, scans, specs)
+        out = yield from self._join(ranks, extracts, scans, specs)
+        return new_carry, out
 
     def _boundary(self, mine, first):
         """The value at a process boundary of the time axis: ``mine`` is
@@ -256,14 +286,19 @@ class ShardedChannelizer(Lanes, FrequencyDomainChannelizer):
         first)."""
         if self.mesh.process_count == 1:
             return mine, first
-        from fdc_tpu_torch.parallel.multihost import allgather
-
         self._to_caller(mine)
-        every = allgather([mine])[0]
+        (every,) = yield [mine]
         p = self.mesh.process_index
         before = first if p == 0 else every[p - 1]
-        self._from_caller(every, 0)
+        self._after_gather(every)
         return every[-1], before
+
+    def _after_gather(self, tree):
+        """Every rank waits for the caller's stream after a gather (in a
+        capture: the next segment forks them) and rank 0 records the
+        gathered tensors."""
+        self._fork(range(len(self.devices)))
+        self._from_caller(tree, 0)
 
     def _front(self, x, spec_in, hist0):
         """Each local time rank's extended spectrum [b + 1, N] on its
@@ -304,12 +339,11 @@ class ShardedChannelizer(Lanes, FrequencyDomainChannelizer):
                       if len(self.segments) else [])
         if self.mesh.process_count == 1:
             return pa_powers, seg_packed
-        from fdc_tpu_torch.parallel.multihost import allgather
-
         local = ([pa_powers] if pa_powers is not None else []) + seg_packed
         self._to_caller(local)
-        whole = self._from_caller([e.reshape((-1,) + tuple(e.shape[2:]))
-                                   for e in allgather(local)], 0)
+        every = yield local
+        self._after_gather(every)
+        whole = [e.reshape((-1,) + tuple(e.shape[2:])) for e in every]
         if pa_powers is not None:
             pa_powers = whole.pop(0)
         if seg_packed:
@@ -379,7 +413,7 @@ class ShardedChannelizer(Lanes, FrequencyDomainChannelizer):
             cats["dbg"] = (0, torch.view_as_real(
                 torch.cat([s[1:].to(dev) for s in specs])))
         if self.mesh.process_count > 1:
-            rows, cats = self._join_processes(rows, cats)
+            rows, cats = yield from self._join_processes(rows, cats)
         if self.throughput:
             out["throughput_buckets"] = [
                 cats["tp", k][1] for k in range(len(self.throughput.buckets))]
@@ -399,11 +433,9 @@ class ShardedChannelizer(Lanes, FrequencyDomainChannelizer):
     def _join_processes(self, rows, cats):
         """The processes' joined outputs: one all-gather, then row
         families merged and the rest concatenated in process order."""
-        from fdc_tpu_torch.parallel.multihost import allgather
-
         keys_r, keys_c = list(rows), list(cats)
-        every = allgather([rows[k] for k in keys_r]
-                          + [cats[k][1] for k in keys_c])
+        every = yield ([rows[k] for k in keys_r]
+                       + [cats[k][1] for k in keys_c])
         rows = {k: merge_rows(list(e)) for k, e in zip(keys_r, every)}
         out = {}
         for k, e in zip(keys_c, every[len(keys_r):]):

@@ -20,6 +20,29 @@ with one buffer discipline on both devices:
 - **Outputs.** Every call returns the same output tensors, overwritten
   by the next call of any step that shares the pool: copy what you keep
   to the host before the next step.
+- **Rings.** A caller that reads a step's outputs several calls late (the
+  pipeline) keeps a ring of steps (:func:`compiled_ring`): one step a
+  slot, each with a graph pool of its own, all sharing one static carry
+  (:class:`StaticCarry`). Slot k's outputs stay valid until slot k runs
+  again.
+
+Inputs are tensors or nested lists / tuples / dicts of them (other
+leaves, such as None or an int, are part of the shape's key); an input
+that already is the entry's static buffer is not copied.
+
+A graph may span several streams of the card: a step that forks streams
+from the capturing stream (``Stream.wait_stream``) joins every one of
+them back before it returns, as CUDA's stream capture requires; waits
+between the forked streams are captured with it.
+
+Segments: a step that exchanges tensors with other processes on the
+host (a gather no graph can hold) is written as a generator that yields
+the tensors it sends at each exchange and receives what the step's
+``exchange`` returns (the gathered tensors). It is captured as one graph
+a segment between exchanges; a call replays segment k, exchanges its
+tensors on the host into the static buffers segment k + 1 reads, and so
+on. Every process captures and replays in step, so the exchanges pair
+up.
 
 One graph per input shape (jit's cache per shape), captured after two
 eager warm-up calls on a side stream, which fill the cached device
@@ -40,6 +63,8 @@ the counts equal the eager step's.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import importlib
 import inspect
 import sys
@@ -53,6 +78,9 @@ __all__ = [
     "CaptureError",
     "CompiledStep",
     "GraphPool",
+    "StaticCarry",
+    "compiled_ring",
+    "drive",
     "install_carry",
     "launch_counters",
 ]
@@ -75,6 +103,22 @@ COUNTED = (
 class CaptureError(RuntimeError):
     """The step cannot be captured as a CUDA graph (on the CPU: it runs an
     operation that would refuse capture on the card)."""
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cyclic garbage collector held off inside the block: a
+    CUDA graph it frees while another is being captured (the freed graph's
+    reset) invalidates that capture. Garbage waits for the next
+    collection after the block."""
+    if not gc.isenabled():
+        yield
+        return
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
 
 
 def launch_counters():
@@ -105,6 +149,14 @@ class GraphPool:
         """A new pool from the next capture on: once every graph of a pool
         is gone, the allocator frees it and refuses captures into it."""
         self._handle = None
+
+
+class StaticCarry:
+    """The static carry of one step, or of every step of a ring that
+    advances one carry: the leaves the graphs read and write back."""
+
+    def __init__(self):
+        self.tree = None
 
 
 # -- trees of tensors ---------------------------------------------------------
@@ -151,6 +203,18 @@ def _leaves(tree):
             yield from _leaves(v)
     elif isinstance(tree, torch.Tensor):
         yield tree
+
+
+def _signature(tree):
+    """A hashable key of an input tree: each tensor leaf's (shape, dtype),
+    other leaves as they are."""
+    if isinstance(tree, dict):
+        return tuple((k, _signature(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,) + tuple(_signature(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tuple(tree.shape), tree.dtype
+    return tree
 
 
 def _storage(t):
@@ -230,12 +294,28 @@ class _CaptureGuard(TorchDispatchMode):
 
 # -- the compiled step ---------------------------------------------------------
 
+def drive(result, exchange):
+    """A step's (new_carry, out): ``result`` itself, or where the step is
+    a generator (a segmented step), its return value, each list of
+    tensors it yields answered with ``exchange(tensors)``."""
+    if not inspect.isgenerator(result):
+        return result
+    try:
+        sent = next(result)
+        while True:
+            sent = result.send(exchange(sent))
+    except StopIteration as stop:
+        return stop.value
+
+
 class _Entry:
-    """One input shape's static inputs, graph, outputs and launches."""
+    """One input shape's static inputs, graphs (one a segment), the
+    exchanges between them, outputs and launches."""
 
     def __init__(self, inputs):
         self.inputs = inputs
-        self.graph = None
+        self.graphs = []
+        self.exchanges = []  # (tensors a segment sends, buffers it receives)
         self.out = None
         self.launches = {}
         self.clone_new = set()  # new-carry leaves that alias the static carry
@@ -247,14 +327,19 @@ class CompiledStep:
     CUDA graph per input shape on the card (see the module docstring).
 
     Call it as the step: ``carry, out = step(carry, *inputs, t0)``, with
-    ``inputs`` tensors on any device (a host tensor is copied to the
-    card) and ``t0`` an int. ``fn`` (a bound method is held weakly, so
-    the step does not keep its owner alive) stays reachable as
-    :attr:`fn`, and :meth:`eager` runs it.
+    ``inputs`` trees of tensors on any device (a host tensor is copied to
+    the card) and ``t0`` an int; a step without a carry takes and returns
+    None. ``fn`` (a bound method is held weakly, so the step does not
+    keep its owner alive) stays reachable as :attr:`fn`, and
+    :meth:`eager` runs it. ``carry``: a :class:`StaticCarry` shared with
+    other steps (a ring's). ``exchange``: for a step that yields at
+    exchanges between processes (module docstring), the host function
+    from the tensors it yields to the tensors it receives.
     """
 
     def __init__(self, fn, device, *, pool: Optional[GraphPool] = None,
-                 takes_t0: bool = True):
+                 takes_t0: bool = True, carry: Optional[StaticCarry] = None,
+                 exchange=None):
         if inspect.ismethod(fn):
             self._fn = weakref.WeakMethod(fn)
         else:
@@ -262,7 +347,17 @@ class CompiledStep:
         self.device = torch.device(device)
         self.pool = pool if pool is not None else GraphPool()
         self.takes_t0 = takes_t0
+        self.exchange = exchange
+        self._static = carry if carry is not None else StaticCarry()
         self.release()
+
+    @property
+    def _carry(self):
+        return self._static.tree
+
+    @_carry.setter
+    def _carry(self, tree):
+        self._static.tree = tree
 
     @property
     def fn(self):
@@ -281,9 +376,8 @@ class CompiledStep:
         """The step run eagerly, without graph or static buffers, its
         tensor arguments moved to the step's device (the path of a caller
         that opts out)."""
-        return self.fn(carry, *(a.to(self.device)
-                                if isinstance(a, torch.Tensor) else a
-                                for a in args))
+        return drive(self.fn(carry, *(_map(
+            lambda t: t.to(self.device), a) for a in args)), self.exchange)
 
     def owns(self, carry) -> bool:
         """Whether ``carry`` is this step's static carry."""
@@ -304,21 +398,21 @@ class CompiledStep:
         inputs, t0 = (args[:-1], args[-1]) if self.takes_t0 else (args, None)
         if carry is not self._carry:
             self.adopt(carry)
-        key = tuple((tuple(x.shape), x.dtype) for x in inputs)
+        key = tuple(_signature(x) for x in inputs)
         entry = self._entries.get(key)
         fresh = entry is None
         if fresh:
-            entry = _Entry([torch.empty(x.shape, dtype=x.dtype,
-                                        device=self.device) for x in inputs])
-        for buf, x in zip(entry.inputs, inputs):
-            buf.copy_(x)
+            entry = _Entry(_map(lambda x: torch.empty(
+                x.shape, dtype=x.dtype, device=self.device), list(inputs)))
+        for _, buf, x in _pairs(entry.inputs, list(inputs), "inputs"):
+            if not _same(buf, x):
+                buf.copy_(x)
         if t0 is not None:
             self._t0.fill_(int(t0))
         if self.device.type == "cuda":
             with torch.cuda.device(self.device):
-                if fresh:
-                    self._capture(entry)
-                entry.graph.replay()
+                # the capture ran every segment but the last
+                self._replay(entry, self._capture(entry) if fresh else 0)
             for fn, n in entry.launches.items():
                 fn.launches += n
         elif fresh:
@@ -336,14 +430,26 @@ class CompiledStep:
     def _args(self, carry, entry):
         return [carry, *entry.inputs] + ([self._t0] if self.takes_t0 else [])
 
-    def _body(self, entry, fresh):
+    def _replay(self, entry, start):
+        """Segments ``start``... of the entry's step, each followed by its
+        exchange on the host into the buffers the next one reads."""
+        for k in range(start, len(entry.graphs)):
+            entry.graphs[k].replay()
+            if k < len(entry.exchanges):
+                mine, every = entry.exchanges[k]
+                for buf, got in zip(every, self.exchange(mine)):
+                    buf.copy_(got)
+
+    def _body(self, entry, fresh, on_yield=None):
         """The step from the static buffers, its new carry copied back into
         the static carry; returns the outputs. The aliasing of the new
         carry and the outputs with the static carry is read on the first
         run (the capture) by address ranges: a leaf that overlaps it is
         cloned first, so the copy-back neither reads a leaf it already
-        overwrote nor changes an output."""
-        new, out = self.fn(*self._args(self._carry, entry))
+        overwrote nor changes an output. ``on_yield`` answers a segmented
+        step's exchanges (default: ``exchange``)."""
+        new, out = drive(self.fn(*self._args(self._carry, entry)),
+                         on_yield or self.exchange)
         pairs = list(_pairs(self._carry, new))
         out_leaves = list(_leaves(out))
         if fresh:
@@ -367,28 +473,57 @@ class CompiledStep:
         """Two eager warm-up calls on a side stream (on a clone of the
         carry, so the stream's state does not move), then the capture on
         it; the wrappers' counts are put back as they were and the
-        capture's kept as the graph's launches. The capture is begun and
-        ended directly: ``torch.cuda.graph`` would also run
+        capture's kept as the graph's launches. A segmented step's
+        capture ends at each exchange, replays the segment so that what
+        it sends has its values, exchanges it into buffers of its own
+        (the next segment's static inputs) and captures the next segment.
+        Returns the first segment the call has yet to replay. The capture
+        is begun and ended directly: ``torch.cuda.graph`` would also run
         ``gc.collect()`` and empty the allocator's cache before it, a
-        cost that grows with the host's heap."""
+        cost that grows with the host's heap. The garbage collector is
+        paused instead from the first segment's capture to the last's
+        end, so that no unreachable graph (a dropped channelizer's) is
+        freed inside a capture."""
         counters = launch_counters()
         before = {fn: fn.launches for fn in counters}
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
-        graph = torch.cuda.CUDAGraph()
+        capturing = [False]
+
+        def begin():
+            entry.graphs.append(torch.cuda.CUDAGraph())
+            entry.graphs[-1].capture_begin(pool=self.pool.handle())
+            capturing[0] = True
+
+        def end():
+            capturing[0] = False
+            entry.graphs[-1].capture_end()
+
+        def exchange(mine):
+            end()
+            entry.graphs[-1].replay()
+            every = self.exchange(mine)
+            entry.exchanges.append((mine, every))
+            begin()
+            return every
+
         try:
             with torch.cuda.stream(side):
                 for _ in range(2):
-                    self.fn(*self._args(_map(torch.clone, self._carry),
-                                        entry))
+                    drive(self.fn(*self._args(
+                        _map(torch.clone, self._carry), entry)),
+                        self.exchange)
                 warm = {fn: fn.launches for fn in counters}
                 try:
-                    graph.capture_begin(pool=self.pool.handle())
-                    try:
-                        entry.out = self._body(entry, fresh=True)
-                    finally:
-                        graph.capture_end()
+                    with _collector_paused():
+                        begin()
+                        try:
+                            entry.out = self._body(entry, fresh=True,
+                                                   on_yield=exchange)
+                        finally:
+                            if capturing[0]:
+                                end()
                 except RuntimeError as e:
                     self.pool.renew()  # the failed graph leaves it unusable
                     raise CaptureError(f"the step does not capture as a "
@@ -399,7 +534,20 @@ class CompiledStep:
             for fn in counters:
                 fn.launches = before[fn]
             cur.wait_stream(side)
-        entry.graph = graph
+        return len(entry.graphs) - 1
+
+
+def compiled_ring(fn, device, depth: int, *, pools=None,
+                  takes_t0: bool = True, carry: Optional[StaticCarry] = None):
+    """``depth`` compiled steps of ``fn``, slot k with graph pool
+    ``pools[k]`` (default: a pool each; steps on one stream may share a
+    slot's pool with another ring's slot k), all sharing one static carry:
+    a caller that consumes a call's outputs up to ``depth - 1`` calls of
+    the ring late gives call n the slot n % depth."""
+    pools = pools or [GraphPool() for _ in range(depth)]
+    carry = carry if carry is not None else StaticCarry()
+    return [CompiledStep(fn, device, pool=pools[k], takes_t0=takes_t0,
+                         carry=carry) for k in range(depth)]
 
 
 def install_carry(steps, current, carry):

@@ -18,6 +18,8 @@ compiled and the eager port runs are bit-equal.
 """
 
 import copy
+import gc
+import weakref
 
 import jax
 import numpy as np
@@ -30,16 +32,11 @@ from fdc_tpu.runtime import checkpoint as jax_ckpt
 from fdc_tpu_torch import (
     ActivityDetectionChannelizer,
     FrequencyDomainChannelizer,
-    HostPipelineOwner,
-    HostPipelineWorker,
-    PipelineChannelizer,
-    ShardedChannelizer,
 )
 from fdc_tpu_torch.flagship import _flagship, powact32, reference_example
 from fdc_tpu_torch.models.throughput import ThroughputChannelizer
 from fdc_tpu_torch.ops import detect, extract_fused, fft, lifecycle, powact
 from fdc_tpu_torch.ops import probes
-from fdc_tpu_torch.parallel import make_mesh
 from fdc_tpu_torch.runtime import checkpoint as ckpt
 from fdc_tpu_torch.runtime import compiled
 from fdc_tpu_torch.runtime.compiled import CaptureError, CompiledStep
@@ -340,7 +337,7 @@ def test_vcm_checkpoint_into_a_compiled_runner(tmp_path):
     assert_events_match(et, ej)
 
 
-# -- launch accounting and the opt-outs --------------------------------------
+# -- launch accounting --------------------------------------------
 
 WRAPPERS = ((extract_fused, "extract_shared"),
             (extract_fused, "extract_shared_fold"),
@@ -386,23 +383,6 @@ def test_compiled_launch_counts_equal_eager(name, monkeypatch):
         counts.append({a: getattr(m, a).launches for m, a in WRAPPERS})
     assert counts[0] == counts[1]
     assert counts[0]["forward_spectrum_four_step"] > 0
-
-
-def test_sharded_and_pipeline_channelizers_opt_out():
-    """The sharded step and the pipeline's stages stay eager in this
-    slice: an explicit class attribute, and no graph after a stream."""
-    assert FrequencyDomainChannelizer.compile_step
-    for cls in (ShardedChannelizer, PipelineChannelizer, HostPipelineOwner,
-                HostPipelineWorker):
-        assert cls.compile_step is False, cls
-    cfg = _flagship(**SMALL)
-    x = capture(cfg, 3, 500)
-    sh = ShardedChannelizer(cfg, mesh=make_mesh(2, 1, ["cpu"] * 2))
-    pipe = PipelineChannelizer(cfg, devices=["cpu"])
-    for fdc in (sh, pipe):
-        run(fdc, x)
-        assert not fdc._jit_step._entries
-        assert not fdc._jit_step.owns(fdc._carry)
 
 
 # -- the compiled step itself --------------------------------------------------
@@ -502,6 +482,66 @@ def cuda_device():
         pytest.skip("needs a CUDA device (graph capture and the kernels "
                     "run only on the card)")
     return torch.device("cuda")
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_collector_paused_restores_its_state(enabled):
+    """The capture's pause of the garbage collector holds it off inside
+    the block and leaves it as it found it, on an error too."""
+    was = gc.isenabled()
+    try:
+        (gc.enable if enabled else gc.disable)()
+        with pytest.raises(KeyError):
+            with compiled._collector_paused():
+                assert not gc.isenabled()
+                raise KeyError
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
+@pytest.mark.cuda
+def test_capture_holds_while_a_dropped_graph_is_garbage():
+    """A graph freed inside another's capture invalidates that capture: a
+    step that makes a captured graph unreachable, young and due for
+    collection while the step is captured still captures (the collector
+    is paused across it), and the garbage goes after."""
+    dev = cuda_device()
+
+    class Cycle:
+        pass
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1 << 30)   # no collection: the orphan stays young
+    try:
+        orphan = Cycle()
+        orphan.me = orphan
+        orphan.step = CompiledStep(lambda c, x: (c, {"y": x + 1}), dev,
+                                   takes_t0=False)
+        orphan.step({"a": torch.zeros(1, device=dev)},
+                    torch.ones(4, device=dev))
+        gone = weakref.ref(orphan)
+        pending = [orphan]
+        del orphan
+
+        def step(carry, x):
+            if torch.cuda.is_current_stream_capturing():
+                pending.clear()      # the cycle is garbage from here on
+                gc.set_threshold(1)  # and the next allocation collects it
+                _ = [{} for _ in range(256)]
+            return {"a": carry["a"] + x.sum()}, {"y": x * 2}
+
+        s = CompiledStep(step, dev, takes_t0=False)
+        carry = {"a": torch.zeros((), device=dev)}
+        for _ in range(2):
+            carry, out = s(carry, torch.ones(4, device=dev))
+        torch.cuda.synchronize()
+    finally:
+        gc.set_threshold(*thresholds)
+    gc.collect()
+    assert float(carry["a"]) == 8.0
+    assert out["y"].tolist() == [2.0] * 4
+    assert gone() is None
 
 
 @pytest.mark.cuda

@@ -14,8 +14,8 @@ Python copy must equal its source apart from its first line (the
 provenance note) and the ``fdc_tpu`` -> ``fdc_tpu_torch`` import lines;
 a fix made in one package and not the other fails here.
 The last test holds the rule behind the copies: no module of the port,
-its command line, ``chip_smoke.py`` or ``tools_torch/`` imports ``jax``
-or ``fdc_tpu``.
+its command line, ``chip_smoke.py``, ``tools_torch/`` or the port's
+examples (``examples/*_torch.py``) imports ``jax`` or ``fdc_tpu``.
 """
 
 import ast
@@ -181,6 +181,10 @@ def test_port_imports_neither_jax_nor_fdc_tpu():
     files.append(ROOT / "chip_smoke.py")
     files += sorted((ROOT / "tools_torch").glob("*.py"))
     assert ROOT / "tools_torch" / "multihost_worker.py" in files
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert {e.name for e in examples} >= {"fdc_example_torch.py",
+                                          "pod_burst_hunter_torch.py"}
+    files += examples
     bad = [(str(f.relative_to(ROOT)), m)
            for f in files for m in imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "fdc_tpu")]

@@ -17,7 +17,8 @@ powers within 1e-5 of the max. Also the helpers of
 no-ops, and ``host_local_batch``'s feed into the sharded step against
 ``fdc_tpu``'s sharded step on the forced CPU mesh. Counterparts:
 tests/test_multihost_twoprocess.py and tests/test_parallel.py's
-single-process helper test.
+single-process helper test. The step of a mesh of several processes
+is compiled in segments between its gathers, which stage on the host.
 """
 
 import importlib.util
@@ -33,6 +34,7 @@ import torch
 from fdc_tpu.config import ChannelizerConfig as JaxConfig
 from fdc_tpu.models.channelizer import FrequencyDomainChannelizer as JaxFDC
 from fdc_tpu_torch.parallel import ShardedChannelizer
+from fdc_tpu_torch.parallel.mesh import Mesh
 from fdc_tpu_torch.parallel.multihost import (
     global_mesh,
     host_local_batch,
@@ -142,3 +144,60 @@ def test_host_local_batch_feeds_the_step():
     _, out = sh._device_step(sh._device_init(), arr, 0)
     _, jout = jax_step(ref, ref._jit_init(), x, 0)
     assert_outputs_match(out, jout, "step")
+
+
+def flat(tree, pre=""):
+    """A step's output or carry tree as {path: tensor}."""
+    if isinstance(tree, dict):
+        return {k: v for key, val in tree.items()
+                for k, v in flat(val, f"{pre}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, val in enumerate(tree)
+                for k, v in flat(val, f"{pre}/{i}").items()}
+    return {pre: tree}
+
+
+@pytest.mark.parametrize("process_count", [1, 2])
+def test_step_across_processes_is_compiled_in_segments(process_count,
+                                                       monkeypatch):
+    """The sharded step yields at each gather across processes; the
+    compiled step runs as one graph a segment between them: with several
+    processes four gathers a samples step (the history tail, the
+    reach-back row, the detection statistics, the outputs), with one
+    none. The mesh's process count is set as a process group of two
+    would set it; in one process the gathers are the identity. Two
+    compiled steps equal the eager ones bit for bit."""
+    import fdc_tpu_torch.parallel.sharded as sharded_mod
+    from fdc_tpu_torch.parallel.multihost import allgather
+
+    sent = []
+
+    def counted(tensors):
+        sent.append(len(tensors))
+        return allgather(tensors)
+
+    monkeypatch.setattr(sharded_mod, "allgather", counted)
+    _, pcfg = configs()
+    models = [ShardedChannelizer(pcfg, mesh=Mesh(
+        [["cpu"], ["cpu"]], process_index=0, process_count=process_count))
+        for _ in range(2)]
+    assert all(m.compile_step for m in models)
+    x = signal(pcfg, 2, 3)
+    bs = pcfg.batch_blocks * pcfg.inplen
+    carries = [m._device_init() for m in models]
+    for b in range(2):
+        chunk = torch.from_numpy(x[b * bs:(b + 1) * bs])
+        del sent[:]
+        carries[0], got = models[0]._jit_step(carries[0], chunk,
+                                              b * pcfg.batch_blocks)
+        assert len(sent) == (4 if process_count > 1 else 0)
+        carries[1], ref = models[1]._device_step(carries[1], chunk,
+                                                 b * pcfg.batch_blocks)
+        rows = pcfg.batch_blocks // process_count
+        assert got["seg0"]["power"].shape[0] == rows
+        for tree_a, tree_b in ((got, ref), (carries[0], carries[1])):
+            fa, fb = flat(tree_a), flat(tree_b)
+            assert fa.keys() == fb.keys()
+            for k in fa:
+                assert torch.equal(fa[k], fb[k]), k
+    assert models[0]._jit_step.owns(carries[0])

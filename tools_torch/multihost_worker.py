@@ -13,7 +13,7 @@ exact, samples within rtol 2e-4 / atol 2e-5 of the max) and throughput
 streams against the sharded run's.
 
     python tools_torch/multihost_worker.py PROCESS_ID N_PROCESSES \\
-        INIT_METHOD [basic|rich] [--cuda] [--config CFG.json
+        INIT_METHOD [basic|rich] [--cuda] [--eager] [--config CFG.json
         --capture CAP.c64] [--out RESULTS.pkl]
 
 ``INIT_METHOD``: ``file:///path/to/store`` (a file every process can
@@ -26,8 +26,10 @@ whole capture through ``process()`` / ``flush()``. ``--config`` and
 ``--capture`` (a config JSON and a raw complex64 file) replace the
 scenario's, read whole as in "rich". ``--cuda``: the ranks are streams of
 the first CUDA device (else CPU ranks, the kernels' plain versions); the
-kernels' launch counts and the wall are printed. ``--out``: process 0
-pickles its results (``ProcessResult`` list) there.
+kernels' launch counts, the wall and the step's graphs (one a segment
+between the gathers across processes) are printed. ``--eager``: the
+step's eager opt-out (``compile_step``). ``--out``: process 0 pickles
+its results (``ProcessResult`` list) there.
 """
 
 import argparse
@@ -114,6 +116,7 @@ def main(argv):
     ap.add_argument("scenario", nargs="?", default="basic",
                     choices=("basic", "rich"))
     ap.add_argument("--cuda", action="store_true")
+    ap.add_argument("--eager", action="store_true")
     ap.add_argument("--config", default="")
     ap.add_argument("--capture", default="")
     ap.add_argument("--out", default="")
@@ -133,6 +136,8 @@ def main(argv):
         cfg = config(scenario)
         x = capture(cfg, scenario)
     sh = ShardedChannelizer(cfg, mesh=mesh)
+    if args.eager:
+        sh.compile_step = False
     counters = {}
     if cuda:
         import torch
@@ -179,6 +184,9 @@ def main(argv):
     launches = {k: f.launches for k, f in counters.items() if f.launches}
     print(f"PROC{pid} WALL {wall:.4f} s STEPS {sh._t0 // cfg.batch_blocks} "
           f"LAUNCHES {launches}", flush=True)
+    # the compiled step's graphs: one a segment between the gathers
+    graphs = sum(len(e.graphs) for e in sh._jit_step._entries.values())
+    print(f"PROC{pid} GRAPHS {graphs}", flush=True)
 
     if pid == 0:
         ref = FrequencyDomainChannelizer(cfg, device=dev)
