@@ -110,13 +110,20 @@ with its wall seconds:
    step, and of the shard_time pipeline's first two batches, held
    against its plain version (rank-local shapes).
 10. the FFT route, blocksizes above 16384 and the utilities
-   (``large_n_phase``): kernel F's two-pass form
-   (``csrc/forward_fft_2pass.cu``) against its plain version at
-   [512, 32768], [256, 65536], [128, 131072] and into rows 1..B of an
-   extended spectrum, timed beside the plain version, the ``torch.fft``
-   route and its bound; the flagship at blocksize 32768, B=512, through
-   process() + flush() (F's two-pass form, A, B, C) and against the CPU
-   plain path; the flagship, the example, powact32, hunter4seg and
+   (``large_n_phase``): F2c (``csrc/forward_fft_cluster.cu``, a
+   thread-block cluster a block) and F2, kernel F's two-pass form
+   (``csrc/forward_fft_2pass.cu``), on the same blocks against their
+   plain version at [512, 32768], [256, 65536], [128, 131072] and into
+   rows 1..B of an extended spectrum, timed side by side, beside the
+   plain version, the ``torch.fft`` route and their bound, and whether
+   they agree bit for bit; F2 at [32, 262144] through
+   ``forward_spectrum``, which routes it there; the flagship at
+   blocksize 32768, B=512, through process() + flush() (F2c once a
+   step, A, B, C) and against the CPU plain path, two steps graphed
+   against eager key by key, its step graphed and eager with F2c and
+   then with F2 in its place, its sharded 2x2
+   step and a two-lane pipeline graphed against their eager opt-out;
+   the flagship, the example, powact32, hunter4seg and
    vcm4seg with ``use_mxu_fft=False`` (every subband transform on
    ``torch.fft``: no A, E or F launched, B and C or D once a step), each
    with its events equal to phase 3's, against the CPU plain path and
@@ -165,8 +172,10 @@ the graphs around its run.
 
 In the kernel summary JSON, ``ms``, ``plain_ms``, ``bound_ms`` and
 ``library_ms`` are sums over the kernel's phase-2 cases (for
-``forward_fft_2pass``, phase 10's), and ``launches`` are phase 3's (for
-``forward_fft_2pass``, the 32768-point flagship's in phase 10).
+``forward_fft_cluster`` and ``forward_fft_2pass``, phase 10's), and
+``launches`` are phase 3's (for ``forward_fft_cluster``, the
+32768-point flagship's in phase 10; no path runs F2, which takes N
+above 131072).
 
 The line before the last is the kernel summary JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -231,7 +240,18 @@ def log(*a):
 
 
 def close(a, b, rtol, atol):
-    """|a - b| <= atol * max|b| + rtol * |b| elementwise; max abs error."""
+    """|a - b| <= atol * max|b| + rtol * |b| elementwise; max abs error.
+    Two torch tensors are compared where ``a`` lies (in float64)."""
+    if hasattr(a, "is_cuda") and hasattr(b, "is_cuda"):
+        import torch
+
+        a = a.to(torch.complex128)
+        b = b.to(a.device, torch.complex128)
+        if not b.numel():
+            return True, 0.0
+        err, mag = (a - b).abs(), b.abs()
+        ok = bool((err <= atol * mag.max() + rtol * mag).all())
+        return ok, float(err.max())
     a = np.asarray(a, np.complex128)  # real or complex inputs
     b = np.asarray(b, np.complex128)
     err = np.abs(a - b)
@@ -598,7 +618,8 @@ def fmt_ms(ms):
 # kernels whose phase-5 cases also get their device time by graph_time
 # (not greedy_accept: its wrapper checks its intervals on the host)
 GRAPHED = ("forward_fft", "extract_shared", "extract_shared_fold",
-           "extract_static", "slot_lifecycle", "candidate_packs", "powact")
+           "extract_static", "slot_lifecycle", "candidate_packs", "powact",
+           "tile_probe")
 
 
 def held_time(fn, hold_ms):
@@ -649,6 +670,7 @@ def wrappers():
             ("extract_shared_fold", extract_fused, "extract_shared_fold"),
             ("forward_fft", fft, "forward_spectrum_four_step"),
             ("forward_fft_2pass", fft, "forward_spectrum_two_pass"),
+            ("forward_fft_cluster", fft, "forward_spectrum_cluster"),
             ("tile_probe", probes, "tile_probe"))
 
 
@@ -678,10 +700,15 @@ KERNELS = {
     "forward_fft": ("fdc_tpu_torch/csrc/forward_fft.cu",
                     "tools/pallas_fft_proto.py:83,99; "
                     "tools/pallas_fft_proto2.py:90"),
-    # kernel F's two-pass form, blocksizes above 16384 (phase 10)
+    # kernel F's two-pass form, blocksizes above 131072 (phase 10)
     "forward_fft_2pass": ("fdc_tpu_torch/csrc/forward_fft_2pass.cu",
                           "tools/pallas_fft_proto.py:83,99; "
                           "tools/pallas_fft_proto2.py:90"),
+    # F2c, the same function on a thread-block cluster, blocksizes 32768
+    # to 131072 (phase 10)
+    "forward_fft_cluster": ("fdc_tpu_torch/csrc/forward_fft_cluster.cu",
+                            "tools/pallas_fft_proto.py:83,99; "
+                            "tools/pallas_fft_proto2.py:90"),
     "tile_probe": ("fdc_tpu_torch/csrc/fft_probes.cu",
                    "tools/pallas_fft_micro.py:39-90; "
                    "tools/pallas_fft_micro2.py:44-92"),
@@ -782,7 +809,7 @@ def slice_bins(starts, l):
 
 def cmp_close(what, rtol=RTOL, atol=ATOL):
     def cmp(a, b):
-        ok, e = close(a.cpu(), b.cpu(), rtol, atol)
+        ok, e = close(a, b, rtol, atol)
         assert ok, (what, e)
         return e
     return cmp
@@ -894,6 +921,32 @@ def fft_cases():
     return out + [cs]
 
 
+def probe_library(name, ins):
+    """One PyTorch call computing probe ``name``'s function on ``ins``
+    (its values, in the probe's order, as a view of another shape), or
+    None: the elementwise multiply of m1, the product of the product
+    probes (p4c's an einsum over its blocks' lane halves, transposed);
+    the row selects and lane shuffles (p2, p3, p5, p6) and the per-block
+    pipelines (p4, p4d) are no one call."""
+    import torch
+
+    x, *rest = ins
+    if name == "m1":
+        return lambda: x * 2.0
+    if name in ("m2", "m2p", "m3", "m4"):
+        return lambda: torch.matmul(x.view(-1, 64), rest[0])
+    if name in ("m2f", "m5"):
+        return lambda: torch.matmul(x, rest[0])
+    if name == "m6":
+        return lambda: torch.matmul(x.view(-1, 128), rest[0])
+    if name == "p1":
+        return lambda: torch.matmul(x.T, rest[0])
+    if name == "p4c":
+        return lambda: torch.einsum("bphi,hpj->bij", x.view(-1, 32, 2, 64),
+                                    rest[0].view(2, 32, 64))
+    return None
+
+
 def probe_cases():
     """Kernel P on every FFT probe's own inputs (numpy seed 0)."""
     import torch
@@ -911,7 +964,8 @@ def probe_cases():
             lambda name=name, ins=ins: probes.tile_probe_plain(name, *ins),
             cmp_close(name, 0.0, FFT_TOL),
             f"{name} {[list(v.shape) for v in ins]} -> {list(res.shape)}",
-            nbytes(ins) + nbytes(res), probes.probe_flops(name)))
+            nbytes(ins) + nbytes(res), probes.probe_flops(name),
+            probe_library(name, ins)))
     return out
 
 
@@ -2550,50 +2604,72 @@ FFT_ROUTE_PATHS = {
     "vcm4seg": ("candidate_packs", "slot_lifecycle"),
 }
 PRODUCT_KERNELS = ("extract_shared", "extract_shared_fold", "extract_static",
-                   "forward_fft", "forward_fft_2pass")
+                   "forward_fft", "forward_fft_2pass", "forward_fft_cluster")
+# F2c's and F2's kernel cases: [B, N] of seeded noise
+LARGE_SHAPES = ((512, 32768), (256, 65536), (128, 131072))
 
 
-def two_pass_cases():
-    """Kernel F's two-pass form at [512, 32768], [256, 65536] and
-    [128, 131072], B blocks of seeded noise, and at [512, 32768] into rows
-    1..B of an extended spectrum (row 0 must keep its value). The bound
-    is the function's (the blocks read and the spectrum written once, an
-    FFT's 5 N log2 N operations a block); the library call is
+def large_fft_cases():
+    """F2c (``forward_spectrum_cluster``) and F2
+    (``forward_spectrum_two_pass``) on the same blocks (seeded noise, made
+    on the card) at LARGE_SHAPES, and
+    at [512, 32768] into rows 1..B of an extended spectrum (row 0 must keep
+    its value; F2c through ``forward_spectrum``, the route); F2 at
+    [32, 262144] through ``forward_spectrum``, which must route it there.
+    The bound is the function's (the blocks read and the spectrum written
+    once, an FFT's 5 N log2 N operations a block); the library call is
     ``torch.fft.fft`` + ``fftshift`` + the 1/N scale (the port's
-    ``torch.fft`` route)."""
+    ``torch.fft`` route). Returns {(kernel, shape): case}."""
     import torch
 
     from fdc_tpu_torch.ops import fft
 
-    rng = np.random.default_rng(10)
+    gen = torch.Generator("cuda").manual_seed(10)
 
     def noise(b, n):
-        return torch.from_numpy(
-            (rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))
-             ).astype(np.complex64)).to("cuda")
+        return torch.randn(b, n, dtype=torch.complex64, device="cuda",
+                           generator=gen)
 
-    def f2_case(what, blocks, out=None):
+    def big_case(name, kern, what, blocks, out=None):
         rows, n = blocks.shape
-        return case("forward_fft_2pass",
-                    lambda: fft.forward_spectrum_two_pass(blocks, out=out),
-                    lambda: fft.forward_spectrum_two_pass_plain(blocks),
-                    cmp_close("forward_fft_2pass", 0.0, FFT_TOL), what,
-                    2 * blocks.numel() * 8, 5.0 * n * math.log2(n) * rows,
-                    lambda: fft.forward_spectrum(blocks, use_mxu=False))
+        cs = case(name, lambda: kern(blocks, out=out),
+                  lambda: fft.forward_spectrum_four_step_plain(blocks),
+                  cmp_close(name, 0.0, FFT_TOL), what,
+                  2 * blocks.numel() * 8, 5.0 * n * math.log2(n) * rows,
+                  lambda: fft.forward_spectrum(blocks, use_mxu=False))
+        cs["blocks"] = blocks
+        return cs
 
-    out = [f2_case(f"[{b}, {n}]", noise(b, n))
-           for b, n in ((512, 32768), (256, 65536), (128, 131072))]
-    ext = torch.full((513, 32768), 3 + 4j, dtype=torch.complex64,
-                     device="cuda")
-    cs = f2_case("into spec_ext[1:] [512, 32768]", noise(512, 32768),
-                 out=ext[1:])
-    cmp = cs["cmp"]
+    def keeps_row0(cs, ext):
+        cmp = cs["cmp"]
 
-    def cmp_ext(a, b):
-        assert bool((ext[0] == 3 + 4j).all()), "row 0 of spec_ext written"
-        return cmp(a, b)
-    cs["cmp"] = cmp_ext
-    return out + [cs]
+        def cmp_ext(a, b):
+            assert bool((ext[0] == 3 + 4j).all()), "row 0 of spec_ext written"
+            return cmp(a, b)
+        cs["cmp"] = cmp_ext
+        return cs
+
+    out = {}
+    for b, n in LARGE_SHAPES:
+        x = noise(b, n)
+        out["forward_fft_cluster", f"[{b}, {n}]"] = big_case(
+            "forward_fft_cluster", fft.forward_spectrum_cluster,
+            f"[{b}, {n}]", x)
+        out["forward_fft_2pass", f"[{b}, {n}]"] = big_case(
+            "forward_fft_2pass", fft.forward_spectrum_two_pass,
+            f"[{b}, {n}]", x)
+    x = noise(512, 32768)
+    what = "into spec_ext[1:] [512, 32768]"
+    for name, kern in (("forward_fft_cluster", fft.forward_spectrum),
+                       ("forward_fft_2pass", fft.forward_spectrum_two_pass)):
+        ext = torch.full((513, 32768), 3 + 4j, dtype=torch.complex64,
+                         device="cuda")
+        out[name, what] = keeps_row0(big_case(name, kern, what, x,
+                                              out=ext[1:]), ext)
+    x = noise(32, 262144)
+    out["forward_fft_2pass", "[32, 262144]"] = big_case(
+        "forward_fft_2pass", fft.forward_spectrum, "[32, 262144]", x)
+    return out
 
 
 @contextlib.contextmanager
@@ -2700,35 +2776,58 @@ def fft_route_path(name, p, card):
 
 
 def large_n_phase(paths, card, summary, launches):
-    """Phase 10: kernel F's two-pass form against its plain version (and
-    timed beside it, its bound, the library call and by graph replay);
+    """Phase 10: F2c and F2 against their plain version (and timed beside
+    it, each other, their bound, the library call and by graph replay);
     the flagship at blocksize 32768, B = 512, through process() + flush()
-    on the card (two-pass F, A, B, C) and against the CPU plain path; the
-    flagship, the example, powact32, hunter4seg and vcm4seg with
-    use_mxu_fft=False; the vcm detector's step with its slots on the
-    product route (its former one) and the FFT route, in turns;
-    ``utils.profiling`` on the flagship beside its step time; and
-    ``utils.resample`` on the card against the CPU."""
-    two_pass_kernel(summary["forward_fft_2pass"], card)
-    flagship_32768(launches, card)
-    fft_route_phase(paths, card)
-    utilities_phase(paths, card)
+    on the card (F2c, A, B, C), against
+    the CPU plain path, its step graphed and eager (and with F2 in F2c's
+    place), and its sharded 2x2 step and two-lane pipeline graphed against
+    their eager opt-out; the flagship, the example, powact32, hunter4seg
+    and vcm4seg with use_mxu_fft=False; the vcm detector's step with its
+    slots on the product route (its former one) and the FFT route, in
+    turns; ``utils.profiling`` on the flagship beside its step time; and
+    ``utils.resample`` on the card against the CPU. Each part's wall
+    seconds are logged."""
+    for part, run in (
+            ("kernels", lambda: large_fft_kernels(summary, card)),
+            ("flagship blocksize=32768", lambda: flagship_32768(launches,
+                                                                card)),
+            ("FFT route", lambda: fft_route_phase(paths, card)),
+            ("utilities", lambda: utilities_phase(paths, card))):
+        t = time.perf_counter()
+        run()
+        log(f"phase 10: {part}: {time.perf_counter() - t:.1f} s wall")
 
 
-def two_pass_kernel(ent, card):
-    """Phase 10's kernel cases (:func:`two_pass_cases`), summed into the
-    kernel summary's entry ``ent``."""
+def large_fft_kernels(summary, card):
+    """Phase 10's kernel cases (:func:`large_fft_cases`), summed into the
+    kernel summary's entries; at each of LARGE_SHAPES F2c's device time
+    beside F2's."""
     import torch
 
-    for cs in two_pass_cases():
+    from fdc_tpu_torch.ops import fft
+
+    device = {}
+    cases = large_fft_cases()
+    for (name, shape), cs in cases.items():
+        if shape == "[32, 262144]":
+            before = (fft.forward_spectrum_two_pass.launches,
+                      fft.forward_spectrum_cluster.launches)
         got = cs["kern"]()
         torch.cuda.synchronize()
-        err = cs["cmp"](got, cs["plain"]())
+        if shape == "[32, 262144]":
+            assert (fft.forward_spectrum_two_pass.launches,
+                    fft.forward_spectrum_cluster.launches) == (
+                        before[0] + 1, before[1]), "N = 262144 not on F2"
+        ref = cs["plain"]()
+        err = cs["cmp"](got, ref)
+        ent = summary[name]
         t_bytes = cs["bytes"] / PEAK_BYTES * 1e3
         t_ops = cs["flops"] / PEAK_FP32 * 1e3
         bound = max(t_bytes, t_ops)
         k_ms, p_ms = cuda_time(cs["kern"], 20), cuda_time(cs["plain"], 3)
         l_ms = cuda_time(cs["library"], 20)
+        device[name, shape] = k_dev = graph_time(cs["kern"])
         ent["max_abs_err"] = max(ent["max_abs_err"], err)
         ent["ms"] += k_ms
         ent["plain_ms"] += p_ms
@@ -2737,43 +2836,91 @@ def two_pass_kernel(ent, card):
         if bound > ent["bound_max"]:
             ent["bound_max"] = bound
             ent["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"phase 10: forward_fft_2pass {cs['shape']}: matches plain, max "
-            f"abs err {err:.3g}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"library {l_ms:.4f} ms; device (graph): kernel "
-            f"{fmt_ms(graph_time(cs['kern']))}, library "
+        log(f"phase 10: {name} {shape}: matches plain, max abs err {err:.3g} "
+            f"({err / float(ref.abs().max()):.3g} of the max); kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library {l_ms:.4f} ms; "
+            f"device (graph): kernel {fmt_ms(k_dev)}, library "
             f"{fmt_ms(graph_time(cs['library']))}; bound {bound:.5f} ms "
-            f"({cs['bytes'] / 1e6:.1f} MB, {cs['flops'] / 1e9:.3f} GFLOP; "
-            f"the two passes move {2 * cs['bytes'] / 1e6:.1f} MB, "
-            f"{2 * t_bytes:.5f} ms) {card}")
+            f"({cs['bytes'] / 1e6:.1f} MB, {cs['flops'] / 1e9:.3f} GFLOP) "
+            f"{card}")
+    for b, n in LARGE_SHAPES:
+        shape = f"[{b}, {n}]"
+        x = cases["forward_fft_cluster", shape]["blocks"]
+        same = bool(torch.equal(fft.forward_spectrum_cluster(x),
+                                fft.forward_spectrum_two_pass(x)))
+        c_ms = device["forward_fft_cluster", shape]
+        t_ms = device["forward_fft_2pass", shape]
+        log(f"phase 10: {shape}: F2c {fmt_ms(c_ms)} against F2 "
+            f"{fmt_ms(t_ms)} device (graph), the bound "
+            f"{2 * b * n * 8 / PEAK_BYTES * 1e3:.5f} ms; F2c == F2 bit for "
+            f"bit: {same} {card}")
 
 
 def flagship_32768(launches, card, batch_blocks=512):
-    """The flagship at blocksize 32768: kernel F's two-pass form on the
-    path, its launches added to the kernel summary's."""
+    """The flagship at blocksize 32768: F2c on the path once a step (F2
+    never), its launches added to the kernel summary's; against the CPU
+    plain path; two steps graphed against eager key by key, the step
+    graphed and eager with F2c, then with F2 in its place; its sharded 2x2
+    step and a two-lane pipeline graphed against their eager opt-out
+    (:func:`lanes_run`)."""
     import torch
 
     from fdc_tpu_torch.flagship import _flagship
+    from fdc_tpu_torch.ops import fft
+    from fdc_tpu_torch.parallel import (
+        PipelineChannelizer,
+        ShardedChannelizer,
+        make_mesh,
+    )
 
     cfg = _flagship(blocksize=32768, batch_blocks=batch_blocks)
     make = channelizer(cfg)
     fdc = make("cuda")
     x = scripted_capture(cfg, 2 * fdc.batch_samples + 7 * cfg.inplen + 1234)
+    expect = ("forward_fft_cluster", "extract_shared", "candidate_packs",
+              "slot_lifecycle")
     with counted_steps(fdc) as steps:
         res, kinds, chans, got, tally, fins, fin = run_path(
-            "flagship blocksize=32768", fdc, x,
-            ("forward_fft_2pass", "extract_shared", "candidate_packs",
-             "slot_lifecycle"), tag="phase 10")
-    assert got["forward_fft"] == 0 and got["forward_fft_2pass"] == steps[0]
-    launches["forward_fft_2pass"] += got["forward_fft_2pass"]
+            "flagship blocksize=32768", fdc, x, expect, tag="phase 10")
+    assert got["forward_fft"] == 0 and got["forward_fft_2pass"] == 0
+    assert got["forward_fft_cluster"] == steps[0], (got, steps[0])
+    launches["forward_fft_cluster"] += got["forward_fft_cluster"]
     assert kinds.get("PowActChan", 0) >= 1 and kinds.get("DETECTED", 0) >= 1
     compare_cpu("flagship blocksize=32768", make, x, tag="phase 10")
     chan, amp, snr = tone_check(res, fdc, TONE_BIN)
     assert abs(amp - 1.0) < 0.05 and snr > 25.0, (amp, snr)
-    ms = step_ms(fdc, x, 10)
-    log(f"phase 10: flagship blocksize=32768: {steps[0]} steps, F2 once a "
-        f"step; tone in channel {chan}: amp {amp:.4f}, SNR {snr:.1f} dB; "
-        f"step B={batch_blocks} {ms:.4f} ms "
-        f"({fdc.batch_samples / ms / 1e3:.1f} MS/s) {card}")
+    step_err = step_pair(fdc, x)
+    times = {"F2c": compiled_times(fdc, x, 10)}
+    with swapped(lambda k, fn, plain: (fft.forward_spectrum_two_pass
+                                       if k == "forward_fft_cluster"
+                                       else fn)):
+        times["F2"] = compiled_times(fdc, x, 10)
+    release_graphs(fdc)
+
+    def fmt(front):
+        g, e, eb, gb, _ = times[front]
+        return (f"graphed {g:.4f} ms, eager {e:.4f} ms (busy {fmt_ms(eb)} / "
+                f"{fmt_ms(gb)})")
+    g_ms = times["F2c"][0]
+    log(f"phase 10: flagship blocksize=32768: {steps[0]} steps, F2c once a "
+        f"step, F2 never; tone in channel {chan}: amp {amp:.4f}, SNR "
+        f"{snr:.1f} dB; 2 steps graphed == eager key by key (max abs diff "
+        f"{step_err:.3g}); step B={batch_blocks} with F2c {fmt('F2c')}, "
+        f"with F2 {fmt('F2')} (F2c first; busy: eager / graphed, "
+        f"the stream held) ({fdc.batch_samples / g_ms / 1e3:.1f} MS/s "
+        f"graphed) {card}")
+
+    def run(f, part):
+        return [f.process(x)] + ([] if part == "warm" else [f.flush()])
+    for what, mk in (
+            ("sharded 2x2", lambda: ShardedChannelizer(
+                cfg, mesh=make_mesh(2, 2, ["cuda:0"] * 4))),
+            ("pipeline, 2 lanes", lambda: PipelineChannelizer(
+                cfg, devices=["cuda:0"] * 2))):
+        g, frag = lanes_run(f"flagship blocksize=32768 {what}", mk, run,
+                            [res, fin], expect, card, once=True)
+        log(f"phase 10: flagship blocksize=32768 {what}: {frag} {card}")
+        del g
     del fdc, res, fin
     torch.cuda.empty_cache()
 
@@ -3145,14 +3292,15 @@ def n_graphs(fdc):
     return sum(len(s._entries) for s in graph_steps(fdc))
 
 
-def lanes_run(what, make, run, ref, expect, card, spectra=False):
+def lanes_run(what, make, run, ref, expect, card, spectra=False,
+              once=False):
     """One phase-12 run, graphed against the eager opt-out (on the
     instance) in turns, as phase 11: a new channelizer (cold), a new
     stream after a restart, which drops the graphs (warm), and the
-    stream again with the graphs in place (steady); ``run(fdc, part)``
-    drives it. Results equal (and whether bit-equal), launch counts
-    equal, the graphed cold run held against ``ref``. Returns (the
-    graphed channelizer, a log fragment)."""
+    stream again with the graphs in place (steady); with ``once`` the
+    cold run alone. ``run(fdc, part)`` drives it. Results equal (and
+    whether bit-equal), launch counts equal, the graphed cold run held
+    against ``ref``. Returns (the graphed channelizer, a log fragment)."""
     import torch
 
     fdcs = {"graphed": make(), "eager": make()}
@@ -3161,7 +3309,8 @@ def lanes_run(what, make, run, ref, expect, card, spectra=False):
         restart(fdc)  # records the emitters' state at construction
     runs, walls, counts = {}, {}, {}
     order = (("eager", "graphed"), ("graphed", "eager"))
-    for what_run, modes in zip(("cold", "warm"), order):
+    kept = ("cold",) if once else ("cold", "warm", "steady")
+    for what_run, modes in zip(kept[:2], order):
         for mode in modes:
             fdc = fdcs[mode]
             parts = (("cold",) if what_run == "cold" else
@@ -3187,7 +3336,7 @@ def lanes_run(what, make, run, ref, expect, card, spectra=False):
     n_ev, err = compare(f"{what} graphed against eager",
                         runs["graphed", "cold"], runs["eager", "cold"])
     bits = True
-    for part in ("cold", "warm", "steady"):
+    for part in kept:
         if part != "cold":
             compare(f"{what} {part} graphed against eager",
                     runs["graphed", part], runs["eager", part])
@@ -3198,12 +3347,11 @@ def lanes_run(what, make, run, ref, expect, card, spectra=False):
     torch.cuda.synchronize()
 
     def wall(mode):
-        return " / ".join(f"{walls[mode, w]:.4f}"
-                          for w in ("cold", "warm", "steady"))
+        return " / ".join(f"{walls[mode, w]:.4f}" for w in kept)
     return g, (f"graphed == eager: {n_ev} events, bit-equal {bits}"
                f"{'' if spectra else f' (max abs err {err:.3g})'}, "
-               f"launches {got} equal; walls (host clock) cold / warm / "
-               f"steady: graphed {wall('graphed')} s, eager "
+               f"launches {got} equal; walls (host clock) "
+               f"{' / '.join(kept)}: graphed {wall('graphed')} s, eager "
                f"{wall('eager')} s")
 
 

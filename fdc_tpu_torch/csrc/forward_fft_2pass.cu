@@ -21,16 +21,16 @@
 // = out[k1 + m1 ((k2 + m2/2) mod m2)] / N: the shift is a multiple of m1,
 // so the TC rows of a tile write runs of TC adjacent values.
 //
-// Both passes run one Stockham body (column_passes): TC transforms of M
-// points in shared memory, value i of transform g at buf[i P + g] with a
-// pitch P = TC + 1 (one pad, so a thread walking i of one transform hits
-// another bank each step), thread tid = (g, t) = (tid % TC, tid / TC), the
-// radices of ops/fft.py's TWO_PASS_PLANS (kernel F's RADIX_PLANS plus 128
-// points), the butterflies of radix_fft.cuh, the twiddles from float32
-// tables of W_M^k and W_N^k made in float64 and rounded once
-// (ops/fft.py _radix_twiddles). Every load and store to device memory
-// moves runs of TC adjacent values (TC = 16 up to M = 1024: 128 bytes),
-// with g the fastest index of the thread.
+// Both passes run one Stockham body (radix_fft.cuh's stockham): TC
+// transforms of M points in shared memory, value i of transform g at
+// buf[i P + g] with a pitch P = TC + 1 (one pad, so a thread walking i of
+// one transform hits another bank each step), thread tid = (g, t) =
+// (tid % TC, tid / TC), the radices of ops/fft.py's TWO_PASS_PLANS
+// (kernel F's RADIX_PLANS plus 128 points), the butterflies of
+// radix_fft.cuh, the twiddles from float32 tables of W_M^k and W_N^k made
+// in float64 and rounded once (ops/fft.py _radix_twiddles). Every load
+// and store to device memory moves runs of TC adjacent values (TC = 16 up
+// to M = 1024: 128 bytes), with g the fastest index of the thread.
 //
 // What bounds it on the H100: each pass reads and writes the block once,
 // 4 x 8 N bytes a block; at [512, 32768] 537 MB, 0.160 ms at 3.35 TB/s
@@ -38,7 +38,9 @@
 // operations are 0.019 ms at 67 TFLOP/s fp32: bound by bytes. This design
 // is right first: the scratch round trip doubles the bytes, and pass 1's
 // 128-byte runs are the shortest that fill a sector line. fp32 FFMA only.
-// m1 and m2 from 128 to 16384: N from 32768 to 2^28.
+// m1 and m2 from 128 to 16384: N from 32768 to 2^28. The front end routes
+// N from 32768 to 131072 to forward_fft_cluster.cu, which keeps a block on
+// chip (one pass over HBM), and only N above 131072 here.
 
 #include <cuda_runtime.h>
 
@@ -72,45 +74,6 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return static_cast<size_t>(M) * pitch<tile<M>()>() * sizeof(float2);
 }
 
-// Stockham pass of radix R over stride NS on TC transforms of M points in
-// shared memory, then the remaining passes; the result is in natural
-// order in buf (the self-sorting form: the last pass writes index j + r L)
-template <int M, int V, int TC, int NS, int R, int... REST>
-__device__ __forceinline__ void column_passes(float2* buf,
-                                              const float2* __restrict__ tw,
-                                              int g, int t) {
-  constexpr int T = M / V;   // threads a transform
-  constexpr int NB = V / R;  // butterflies a thread
-  constexpr int L = M / R;   // butterflies, and the stride of their inputs
-  constexpr int P = pitch<TC>();
-  static_assert(NB * R == V && T * NB == L, "radix plan");
-  float2 v[NB][R];
-#pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    const int j = t + b * T;
-    const int k = j % NS;
-#pragma unroll
-    for (int r = 0; r < R; ++r) v[b][r] = buf[(j + r * L) * P + g];
-    if constexpr (NS > 1) {
-#pragma unroll
-      for (int r = 1; r < R; ++r)
-        v[b][r] = cmul(v[b][r], __ldg(&tw[r * k * (M / (NS * R))]));
-    }
-    dft<R>(v[b]);
-  }
-  __syncthreads();  // every read of this pass is done
-#pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    const int j = t + b * T;
-    const int d = (j / NS) * NS * R + j % NS;
-#pragma unroll
-    for (int r = 0; r < R; ++r) buf[(d + r * NS) * P + g] = v[b][r];
-  }
-  __syncthreads();
-  if constexpr (sizeof...(REST) > 0)
-    column_passes<M, V, TC, NS * R, REST...>(buf, tw, g, t);
-}
-
 // pass 1: M = m1-point FFTs over n1 of TC columns, twiddled by W_N^(k1 n2)
 template <int M, int V, int... RS>
 __global__ void __launch_bounds__(threads<M, V>())
@@ -130,7 +93,7 @@ __global__ void __launch_bounds__(threads<M, V>())
     buf[i * P + g] = __ldg(&x[base + static_cast<size_t>(i) * m2 + c0 + g]);
   }
   __syncthreads();
-  column_passes<M, V, TC, 1, RS...>(buf, tw1, tid % TC, tid / TC);
+  stockham<M, V, P, 1, RS...>(buf, tw1, tid % TC, tid / TC);
   for (int e = tid; e < TC * M; e += NT) {
     const int g = e % TC, k1 = e / TC, n2 = c0 + g;
     y[base + static_cast<size_t>(k1) * m2 + n2] =
@@ -158,7 +121,7 @@ __global__ void __launch_bounds__(threads<M, V>())
     buf[i * P + g] = src[e];
   }
   __syncthreads();
-  column_passes<M, V, TC, 1, RS...>(buf, tw2, tid % TC, tid / TC);
+  stockham<M, V, P, 1, RS...>(buf, tw2, tid % TC, tid / TC);
   float2* dst = out + base;
   for (int e = tid; e < TC * M; e += NT) {
     const int g = e % TC, k2 = e / TC;

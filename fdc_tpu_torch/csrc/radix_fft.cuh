@@ -1,7 +1,8 @@
 // Complex float2 arithmetic and the in-register radix DFTs of kernel F
-// (forward_fft.cu) and its two-pass form (forward_fft_2pass.cu). fp32
-// FFMA only; the radix butterflies use float32 constants of W_16^k (no
-// __sincosf).
+// (forward_fft.cu), and the Stockham passes of its large-N forms over
+// transforms laid side by side in shared memory (forward_fft_2pass.cu,
+// forward_fft_cluster.cu). fp32 FFMA only; the radix butterflies use
+// float32 constants of W_16^k (no __sincosf).
 
 #pragma once
 
@@ -76,6 +77,73 @@ __device__ __forceinline__ void dft(float2 (&v)[R]) {
       v[k + H] = csub(e[k], t);
     }
   }
+}
+
+// Stockham pass of radix R over stride NS on transforms of M points, then
+// the remaining passes; value i of transform g at buf[i P + g] in shared
+// memory (P: the pitch of one index), thread (g, t) of M / V a transform;
+// the twiddles from a float32 table of W_M^k. The result is in natural
+// order (the self-sorting form: the last pass writes index j + r L). With
+// LOAD the first pass reads value i from ld(i) instead of buf, with STORE
+// the last one writes it through st(i, v) (both the thread's own
+// transform): neither then needs a barrier between its reads and writes.
+// Ends with every thread past its last write to buf.
+template <int M, int V, int P, bool LOAD, bool STORE, int NS, int R,
+          int... REST, class Ld, class St>
+__device__ __forceinline__ void passes(float2* buf,
+                                       const float2* __restrict__ tw, int g,
+                                       int t, Ld ld, St st) {
+  constexpr int T = M / V;   // threads a transform
+  constexpr int NB = V / R;  // butterflies a thread
+  constexpr int L = M / R;   // butterflies, and the stride of their inputs
+  constexpr bool from_ld = LOAD && NS == 1;
+  constexpr bool to_st = STORE && sizeof...(REST) == 0;
+  static_assert(NB * R == V && T * NB == L, "radix plan");
+  float2 v[NB][R];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    const int j = t + b * T;
+    const int k = j % NS;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (from_ld)
+        v[b][r] = ld(j + r * L);
+      else
+        v[b][r] = buf[(j + r * L) * P + g];
+    }
+    if constexpr (NS > 1) {
+#pragma unroll
+      for (int r = 1; r < R; ++r)
+        v[b][r] = cmul(v[b][r], __ldg(&tw[r * k * (M / (NS * R))]));
+    }
+    dft<R>(v[b]);
+  }
+  if constexpr (!from_ld && !to_st) __syncthreads();  // reads done
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    const int j = t + b * T;
+    const int d = (j / NS) * NS * R + j % NS;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (to_st)
+        st(d + r * NS, v[b][r]);
+      else
+        buf[(d + r * NS) * P + g] = v[b][r];
+    }
+  }
+  if constexpr (!to_st) __syncthreads();
+  if constexpr (sizeof...(REST) > 0)
+    passes<M, V, P, LOAD, STORE, NS * R, REST...>(buf, tw, g, t, ld, st);
+}
+
+// every pass in shared memory
+template <int M, int V, int P, int NS, int R, int... REST>
+__device__ __forceinline__ void stockham(float2* buf,
+                                         const float2* __restrict__ tw,
+                                         int g, int t) {
+  passes<M, V, P, false, false, NS, R, REST...>(
+      buf, tw, g, t, [](int) { return make_float2(0.0f, 0.0f); },
+      [](int, float2) {});
 }
 
 }  // namespace radix

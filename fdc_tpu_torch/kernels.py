@@ -58,6 +58,8 @@ _SIGNATURES = {
                    _P, _P, _P, _P],
     "fdc_forward_fft": [_P, _I, _I, _P, _P, _P],
     "fdc_forward_fft_2pass": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "fdc_forward_fft_cluster": [_P, _I, _I, _P, _P, _P, _P, _P],
+    "fdc_forward_fft_cluster_fit": [_I, _P, _P],
     "fdc_tile_probe": [_I, _P, _P, _P, _P, _I, _P, _P],
 }
 

@@ -7,9 +7,11 @@ Port of the parts of ``fdc_tpu.ops.fft`` on the port's paths:
   routed as the JAX package routes it: ``use_mxu`` (the ``use_mxu_fft``
   knob, on by default) and N >= 256 take :func:`forward_spectrum_four_step`
   (the JAX package's four-step DFT-as-product form as its plain version;
-  on the card kernel F, a radix FFT, ``csrc/forward_fft.cu``, up to
-  N = 16384, and its two-pass form, ``csrc/forward_fft_2pass.cu``,
-  above), anything else ``torch.fft``.
+  on the card, by N alone (:func:`_front_kernel`): kernel F, a radix FFT,
+  ``csrc/forward_fft.cu``, up to N = 16384; F2c, the same split on a
+  thread-block cluster, ``csrc/forward_fft_cluster.cu``, from 32768 to
+  131072; F's two-pass form, ``csrc/forward_fft_2pass.cu``, above),
+  anything else ``torch.fft``.
 - :func:`subband_ifft` / :func:`interp_subband_ifft`: the subband inverse
   transforms of the FFT route (``use_mxu_fft=False``) on ``torch.fft``
   (cuFFT on the card), as the JAX package computes them with ``jnp.fft``.
@@ -22,7 +24,9 @@ Port of the parts of ``fdc_tpu.ops.fft`` on the port's paths:
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import logging
 
 import numpy as np
 import torch
@@ -31,10 +35,13 @@ from fdc_tpu_torch import kernels
 
 __all__ = [
     "FOUR_STEP_MAX_N",
+    "CLUSTER_MAX_N",
     "TWO_PASS_MAX_N",
     "RADIX_PLANS",
     "TWO_PASS_PLANS",
     "forward_spectrum",
+    "forward_spectrum_cluster",
+    "forward_spectrum_cluster_plain",
     "forward_spectrum_four_step",
     "forward_spectrum_four_step_plain",
     "forward_spectrum_two_pass",
@@ -45,8 +52,12 @@ __all__ = [
     "interp_subband_ifft_mxu",
 ]
 
+_log = logging.getLogger(__name__)
+
 # kernel F keeps a block's N values in shared memory: 16384 at most
 FOUR_STEP_MAX_N = 16384
+# F2c keeps a block in a cluster's shared memories: 8 CTAs hold 131072
+CLUSTER_MAX_N = 131072
 # its two-pass form runs m1- and m2-point FFTs, each at most 16384 points
 TWO_PASS_MAX_N = 16384 * 16384
 
@@ -71,19 +82,37 @@ def forward_spectrum(blocks: torch.Tensor, use_mxu: bool = True,
     """[..., N] complex blocks -> [..., N] spectrum, DC at bin N/2, 1/N
     scaled (reference: python/FrequencyDomainChannelizer.py:206,214-216).
 
-    ``use_mxu`` with N >= 256 takes :func:`forward_spectrum_four_step`
-    (kernel F) up to N = 16384 and :func:`forward_spectrum_two_pass`
-    above, as ``fdc_tpu.ops.fft.forward_spectrum`` takes
-    ``forward_spectrum_mxu``; otherwise ``torch.fft``, shifted and
-    scaled. With ``out`` (a contiguous tensor of the result's shape) the
-    spectrum is written there and ``out`` is returned."""
+    ``use_mxu`` takes the kernel :func:`_front_kernel` names for N, as
+    ``fdc_tpu.ops.fft.forward_spectrum`` takes ``forward_spectrum_mxu``
+    (N >= 256): :func:`forward_spectrum_four_step` (kernel F) up to N =
+    16384, :func:`forward_spectrum_cluster` (F2c) from 32768 to 131072 and
+    :func:`forward_spectrum_two_pass` (F2) above; otherwise ``torch.fft``,
+    shifted and scaled. With ``out`` (a contiguous tensor of the result's
+    shape) the spectrum is written there and ``out`` is returned."""
     n = blocks.shape[-1]
-    if use_mxu and n > FOUR_STEP_MAX_N:
+    kernel = _front_kernel(n) if use_mxu else "torch.fft"
+    if kernel == "F2":
         return forward_spectrum_two_pass(blocks, out=out)
-    if use_mxu and n >= 256:
+    if kernel == "F2c":
+        return forward_spectrum_cluster(blocks, out=out)
+    if kernel == "F":
         return forward_spectrum_four_step(blocks, out=out)
     spec = torch.fft.fftshift(torch.fft.fft(blocks, dim=-1), dim=-1)
     return _into(spec * (1.0 / n), out)
+
+
+def _front_kernel(n: int) -> str:
+    """The front end's kernel for N with ``use_mxu``, by N alone: "F"
+    from 256 to 16384, "F2c" from 32768 to 131072, "F2" above (an N that
+    is not a power of two is refused by the kernel's wrapper), and
+    "torch.fft" below 256. There is no fallback from one to another."""
+    if n < 256:
+        return "torch.fft"
+    if n <= FOUR_STEP_MAX_N:
+        return "F"
+    if n <= CLUSTER_MAX_N:
+        return "F2c"
+    return "F2"
 
 
 def _into(spec: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
@@ -221,7 +250,8 @@ def forward_spectrum_two_pass(blocks: torch.Tensor,
                               out: torch.Tensor | None = None
                               ) -> torch.Tensor:
     """Kernel F's two-pass form (``csrc/forward_fft_2pass.cu``) on CUDA
-    [..., N] complex64 blocks, N a power of two in (16384, 2^28]: the
+    [..., N] complex64 blocks, N a power of two in (16384, 2^28] (the
+    front end takes it above 131072, :func:`_front_kernel`): the
     four-step split N = m1 * m2 of :func:`_four_step_matrices`, pass 1 the
     m1-point FFTs of the columns into a scratch tensor, twiddled, pass 2
     the m2-point FFTs of the rows into ``out``, shifted and scaled.
@@ -250,6 +280,68 @@ def forward_spectrum_two_pass(blocks: torch.Tensor,
 forward_spectrum_two_pass.launches = 0
 # its plain version is the four-step product form's
 forward_spectrum_two_pass_plain = forward_spectrum_four_step_plain
+
+
+def forward_spectrum_cluster(blocks: torch.Tensor,
+                             out: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel F2c (``csrc/forward_fft_cluster.cu``) on CUDA [..., N]
+    complex64 blocks, N a power of two in [32768, 131072]: F2's four-step
+    split, one thread-block cluster a block holding it in its CTAs' shared
+    memories, the transpose between the column and the row FFTs through
+    distributed shared memory (one pass over device memory, no scratch).
+    Its plain version is :func:`forward_spectrum_four_step_plain`, which
+    CPU tensors take."""
+    if blocks.device.type == "cpu":
+        return forward_spectrum_four_step_plain(blocks, out)
+    n = blocks.shape[-1]
+    out = _check_card_fft("forward_spectrum_cluster", blocks,
+                          2 * FOUR_STEP_MAX_N, CLUSTER_MAX_N, out)
+    rows = blocks.numel() // n
+    if rows:
+        dev = blocks.device
+        _cluster_fit(n, dev)
+        m1, m2 = _two_pass_split(n)
+        tw1, tw2 = (_radix_twiddles(m, dev) for m in (m1, m2))
+        twk = _cluster_twiddles(n, dev)
+        kernels.launch(
+            "fdc_forward_fft_cluster", dev,
+            blocks.data_ptr(), rows, n, tw1.data_ptr(),
+            tw2.data_ptr(), twk.data_ptr(), out.data_ptr(),
+        )
+        forward_spectrum_cluster.launches += 1
+    return out
+
+
+forward_spectrum_cluster.launches = 0
+# its plain version is the four-step product form's
+forward_spectrum_cluster_plain = forward_spectrum_four_step_plain
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """F2c's twiddle table: complex64 [m1, m2], W_N^(k1 n2), the values
+    of :func:`_radix_twiddles` at k1 n2 (made in float64, rounded once)
+    row by row, as the kernel reads them."""
+    m1, m2 = _two_pass_split(n)
+    k = (np.arange(m1)[:, None] * np.arange(m2)[None, :]).astype(np.float64)
+    w = np.exp(-2j * np.pi * k / n).astype(np.complex64)
+    return torch.from_numpy(w).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_fit(n: int, device: torch.device) -> int:
+    """The clusters of F2c's build at N that ``device`` runs at once
+    (``cudaOccupancyMaxActiveClusters``), logged once; raises if none can
+    be scheduled."""
+    fit = (ctypes.c_int * 1)()
+    kernels.launch("fdc_forward_fft_cluster_fit", device, n,
+                   ctypes.addressof(fit))
+    if fit[0] < 1:
+        raise RuntimeError(f"forward_spectrum_cluster: N = {n} cannot be "
+                           f"scheduled on {device}")
+    _log.info("forward_spectrum_cluster: N = %d: %d clusters at once on %s",
+              n, fit[0], device)
+    return fit[0]
 
 
 def _two_pass_split(n: int):

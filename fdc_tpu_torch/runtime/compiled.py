@@ -96,6 +96,7 @@ COUNTED = (
     ("fdc_tpu_torch.ops.powact", "powact_flags"),
     ("fdc_tpu_torch.ops.fft", "forward_spectrum_four_step"),
     ("fdc_tpu_torch.ops.fft", "forward_spectrum_two_pass"),
+    ("fdc_tpu_torch.ops.fft", "forward_spectrum_cluster"),
     ("fdc_tpu_torch.ops.probes", "tile_probe"),
 )
 

@@ -345,7 +345,8 @@ WRAPPERS = ((extract_fused, "extract_shared"),
             (detect, "candidate_packs"), (detect, "greedy_accept_batch"),
             (lifecycle, "slot_lifecycle_multi"), (powact, "powact_flags"),
             (fft, "forward_spectrum_four_step"),
-            (fft, "forward_spectrum_two_pass"), (probes, "tile_probe"))
+            (fft, "forward_spectrum_two_pass"),
+            (fft, "forward_spectrum_cluster"), (probes, "tile_probe"))
 
 
 def test_counted_wrappers_are_every_kernel_wrapper():

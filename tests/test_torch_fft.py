@@ -248,14 +248,17 @@ def test_probe_kernel_matches_plain(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [32768, 65536, 131072])
+@pytest.mark.parametrize("n", [32768, 65536, 131072, 262144])
 def test_two_pass_kernel_matches_plain(n):
     """Kernel F's two-pass form against its plain version (the four-step
-    product form) and float64 numpy, through the route's entry point."""
+    product form) and float64 numpy; the route's entry point takes it
+    above 131072 (F2c below, ``tests/test_torch_fft_cluster.py``)."""
     dev = cuda_device()
     x = blocks(n, 5, salt=5)
     before = fft.forward_spectrum_two_pass.launches
-    got = fft.forward_spectrum(torch.from_numpy(x).to(dev))
+    got = (fft.forward_spectrum(torch.from_numpy(x).to(dev))
+           if n > fft.CLUSTER_MAX_N else
+           fft.forward_spectrum_two_pass(torch.from_numpy(x).to(dev)))
     assert fft.forward_spectrum_two_pass.launches == before + 1
     ref = fft.forward_spectrum_four_step_plain(torch.from_numpy(x).to(dev))
     assert_close_to_max(got.cpu().numpy(), ref.cpu().numpy(), 1e-5, f"N={n}")
@@ -269,7 +272,7 @@ def test_two_pass_kernel_writes_into_spec_ext():
     dev = cuda_device()
     x = torch.from_numpy(blocks(32768, 16, salt=6)).to(dev)
     ext = torch.full((17, 32768), 3 + 4j, dtype=torch.complex64, device=dev)
-    got = fft.forward_spectrum(x, out=ext[1:])
+    got = fft.forward_spectrum_two_pass(x, out=ext[1:])
     assert got.data_ptr() == ext[1:].data_ptr()
     assert bool((ext[0] == 3 + 4j).all())
     assert torch.equal(ext[1:], fft.forward_spectrum_two_pass(x))

@@ -62,14 +62,13 @@ def pitch(tc):
     return tc + 1 if tc > 1 else 1
 
 
-def column_passes(buf, m, tc, tw):
-    """The kernel's column_passes on [B, m * pitch] complex64: tc
-    transforms, value i of transform g at i * pitch + g; thread (g, t)
-    takes butterflies j = t + b T."""
+def stockham(buf, m, p, cols, tw):
+    """``radix_fft.cuh``'s stockham on [B, size] complex64: the transforms
+    at offsets ``cols`` (a group q + g), value i of transform g at
+    i * p + q + g; thread (g, t) takes butterflies j = t + b T."""
     values, radices = fft.TWO_PASS_PLANS[m]
-    p = pitch(tc)
     t_per = m // values
-    g = np.arange(tc)[:, None, None]
+    g = np.asarray(cols)[:, None, None]
     ns = 1
     for r in radices:
         assert values % r == 0
@@ -89,6 +88,12 @@ def column_passes(buf, m, tc, tw):
         nxt[:, (d[:, None] + rr[None] * ns)[None] * p + g] = v
         buf, ns = nxt, ns * r
     return buf
+
+
+def column_passes(buf, m, tc, tw):
+    """The two-pass kernel's Stockham body on [B, m * pitch] complex64:
+    tc transforms, value i of transform g at i * pitch + g."""
+    return stockham(buf, m, pitch(tc), np.arange(tc), tw)
 
 
 def two_pass_model(x):
