@@ -32,10 +32,12 @@ with its wall seconds:
    count, touching intervals, empty blocks, a negative ext_start, 2048
    cells), kernel F at every N from 256 to 16384 and into
    rows 1..B of an extended spectrum, kernel P on every FFT probe's
-   inputs, kernel E on the function of ``tools/pallas_extract_proto.py``
-   (the flagship's throughput bucket 0 with a matrix per channel), and
-   kernel A and its fold on ``EXTRACT_EDGES`` (odd starts, ragged shapes,
-   a k split, partly used masks with and without their extent);
+   inputs (the copy probes bit-equal) and on the products whose f is I
+   or 2I again with a random f, kernel E on the function of
+   ``tools/pallas_extract_proto.py`` (the flagship's throughput bucket 0
+   with a matrix per channel), and kernel A and its fold on
+   ``EXTRACT_EDGES`` (odd starts, ragged shapes, a k split, partly used
+   masks with and without their extent);
 3. each path: ``FrequencyDomainChannelizer(cfg, device="cuda")`` (the
    vcm path: its front end + ``ActivityDetectionRunner``) over a scripted
    capture, process + flush, with the kernels' launch counts zeroed just
@@ -947,25 +949,46 @@ def probe_library(name, ins):
     return None
 
 
+# the probes that only move (m1 also doubles) their input: bit-equal
+PROBE_COPIES = ("m1", "p2", "p3", "p5", "p6")
+# the products whose own f is I or 2I: held again with a random f
+PROBE_EYE_F = ("m2", "m2p", "m3", "m4", "m5", "m6")
+
+
+def probe_reads(name, ins):
+    """The inputs probe ``name`` reads: p4d reads only x's block 0."""
+    return [ins[0][:32], *ins[1:]] if name == "p4d" else ins
+
+
 def probe_cases():
-    """Kernel P on every FFT probe's own inputs (numpy seed 0)."""
+    """Kernel P on every FFT probe's own inputs (numpy seed 0), and the
+    products of PROBE_EYE_F again with f seeded noise (numpy seed 1): the
+    copy probes bit-equal to their plain versions, the products within
+    FFT_TOL of the max."""
     import torch
 
     from fdc_tpu_torch.ops import probes
 
+    runs = [(name, "", probes.probe_inputs(name)) for name in probes.PROBES]
+    for name in PROBE_EYE_F:
+        x, f = probes.probe_inputs(name)
+        runs.append((name, " random f", (x, np.random.default_rng(1)
+                                         .standard_normal(f.shape)
+                                         .astype(np.float32))))
     out = []
-    for name in probes.PROBES:
-        ins = [torch.from_numpy(a).to("cuda")
-               for a in probes.probe_inputs(name)]
+    for name, label, arrays in runs:
+        ins = [torch.from_numpy(a).to("cuda") for a in arrays]
         res = probes.tile_probe_plain(name, *ins)
         out.append(case(
             "tile_probe",
             lambda name=name, ins=ins: probes.tile_probe(name, *ins),
             lambda name=name, ins=ins: probes.tile_probe_plain(name, *ins),
-            cmp_close(name, 0.0, FFT_TOL),
-            f"{name} {[list(v.shape) for v in ins]} -> {list(res.shape)}",
-            nbytes(ins) + nbytes(res), probes.probe_flops(name),
-            probe_library(name, ins)))
+            cmp_exact if name in PROBE_COPIES
+            else cmp_close(name + label, 0.0, FFT_TOL),
+            f"{name}{label} {[list(v.shape) for v in ins]} -> "
+            f"{list(res.shape)}",
+            nbytes(probe_reads(name, ins)) + nbytes(res),
+            probes.probe_flops(name), probe_library(name, ins)))
     return out
 
 

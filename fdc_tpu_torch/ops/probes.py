@@ -5,10 +5,13 @@ Replaces the Pallas lowering probes of the fused four-step FFT,
 ``p6`` of ``tools/pallas_fft_micro2.py:44-92``. Each probe computes one
 piece of the fused FFT (a reshape, a product, a transposed contraction,
 an even/odd row select, lane halves, the per-block pipeline) on its own
-shapes; kernel P (``csrc/fft_probes.cu``) composes kernel F's
-shared-memory tile functions to compute each. No path of either package
-runs a probe. :func:`probe_inputs` makes each probe's inputs as its file
-does (numpy, seed 0).
+shapes. Kernel P (``csrc/fft_probes.cu``) cuts each output into slices,
+one CTA a slice (the grid column of ``_PROBE``): a product probe's CTA
+stages its rows of ``x`` and its columns of the constant matrices in
+shared memory by asynchronous copies and multiplies from there; a copy
+probe moves a float4 a thread. No path of either package runs a probe.
+:func:`probe_inputs` makes each probe's inputs as its file does (numpy,
+seed 0).
 """
 
 from __future__ import annotations
@@ -26,26 +29,29 @@ __all__ = ["PROBES", "probe_flops", "probe_inputs", "tile_probe",
 _M, _TB, _N = 64, 8, 4096
 _GEMM64 = 2 * _TB * _M * _M * _M  # [tb*64, 64] @ [64, 64]
 _P4_BLOCK = 4 * _M ** 3 + _M * _M  # two 64^3 products and the twiddle
-# Every probe: (output shape, one CTA per block of input (else one CTA),
-# fp32 operations: its products and elementwise multiplies). The order
-# is the op index: it must match the Op enum of csrc/fft_probes.cu.
+# Every probe: (output shape, CTAs: a [16, 32] slice of a product, a
+# block's 8 columns of a p4 pipeline (p4d: block 0's, which also zero the
+# rest), a float4 a thread of a copy at 128 threads; fp32 operations: its
+# products and elementwise multiplies). The order is the op index: it must
+# match the Op enum of csrc/fft_probes.cu, whose kGrid refuses another
+# grid.
 _PROBE = {
-    "m1": ((_TB, _N), True, _TB * _N),
-    "m2": ((_TB, _N), True, _GEMM64),
-    "m2p": ((_TB, _N), True, _GEMM64),
-    "m2f": ((_M, _M), False, 2 * _M ** 3),
-    "m3": ((_TB, _N), True, _GEMM64),
-    "m5": ((_TB * _M, _M), True, _GEMM64),
-    "m6": ((_TB, _N), True, 2 * _TB * 32 * 128 * 128),
-    "m4": ((_TB, _N), True, _GEMM64),
-    "p1": ((_M, _M), False, 2 * _M ** 3),
-    "p2": ((_M, _M), False, 0),
-    "p3": ((_M, _M), False, 0),
-    "p4": ((_TB * 32, 128), True, _TB * _P4_BLOCK),
-    "p4c": ((_TB * 32, 128), True, _TB * 2 * _M ** 3),
-    "p4d": ((_TB * 32, 128), False, _P4_BLOCK),
-    "p5": ((32, 128), False, 0),
-    "p6": ((32, 128), False, 0),
+    "m1": ((_TB, _N), 64, _TB * _N),
+    "m2": ((_TB, _N), 64, _GEMM64),
+    "m2p": ((_TB, _N), 64, _GEMM64),
+    "m2f": ((_M, _M), 8, 2 * _M ** 3),
+    "m3": ((_TB, _N), 64, _GEMM64),
+    "m5": ((_TB * _M, _M), 64, _GEMM64),
+    "m6": ((_TB, _N), 64, 2 * _TB * 32 * 128 * 128),
+    "m4": ((_TB, _N), 64, _GEMM64),
+    "p1": ((_M, _M), 8, 2 * _M ** 3),
+    "p2": ((_M, _M), 8, 0),
+    "p3": ((_M, _M), 8, 0),
+    "p4": ((_TB * 32, 128), 64, _TB * _P4_BLOCK),
+    "p4c": ((_TB * 32, 128), 64, _TB * 2 * _M ** 3),
+    "p4d": ((_TB * 32, 128), 8, _P4_BLOCK),
+    "p5": ((32, 128), 8, 0),
+    "p6": ((32, 128), 8, 0),
 }
 PROBES = tuple(_PROBE)
 
@@ -133,20 +139,19 @@ def tile_probe(name: str, x, f=None, g=None, t=None):
     ins = [v for v in (x, f, g, t) if v is not None]
     for v in ins:
         if (v.dtype != torch.float32 or v.device != x.device
-                or not v.is_contiguous()):
-            raise ValueError("tile_probe: contiguous float32 tensors on one "
-                             "device expected")
+                or not v.is_contiguous() or v.data_ptr() % 16):
+            raise ValueError("tile_probe: contiguous, 16-byte aligned "
+                             "float32 tensors on one device expected")
     want = _input_shapes(name)
     if [tuple(v.shape) for v in ins] != want:
         raise ValueError(f"tile_probe: {name} takes inputs of {want}")
-    shape, per_block, _ = _PROBE[name]
-    alloc = torch.zeros if name == "p4d" else torch.empty  # p4d: block 0
-    out = alloc(shape, dtype=torch.float32, device=x.device)
+    shape, ctas, _ = _PROBE[name]
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
     kernels.launch(
         "fdc_tile_probe", x.device,
         PROBES.index(name), *(v.data_ptr() if v is not None else None
                               for v in (x, f, g, t)),
-        _TB if per_block else 1, out.data_ptr(),
+        ctas, out.data_ptr(),
     )
     tile_probe.launches += 1
     return out

@@ -12,7 +12,9 @@
   1e-5 of the max (fp32 against float64);
 - ``cuda``-marked: kernels F (and its two-pass form at N = 32768 ...
   131072) and P against their plain versions on the card, max abs err
-  <= 1e-5 of each result's max (another summation order).
+  <= 1e-5 of each result's max (another summation order); P's copy
+  probes bit-equal, every output element written, and the products whose
+  own f is I or 2I again with a random f.
 
 The JAX comparisons import JAX inside the tests and run it on its CPU
 backend, so the file also runs on the card's machine, with or without
@@ -27,6 +29,7 @@ import torch
 
 from fdc_tpu_torch import kernels
 from fdc_tpu_torch.ops import fft, probes
+from test_torch_probe_schedule import EYE_F, random_f_inputs
 
 NS = [256, 512, 1024, 2048, 4096, 8192, 16384]
 REL_RMS = 2e-6
@@ -240,8 +243,31 @@ def test_forward_fft_kernel_writes_into_spec_ext():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", probes.PROBES)
 def test_probe_kernel_matches_plain(name):
+    """Within 1e-5 of the max, the copies bit-equal; every output element
+    written: the kernel launched into an output filled with NaN gives
+    the wrapper's result."""
     dev = cuda_device()
     ins = [torch.from_numpy(a).to(dev) for a in probes.probe_inputs(name)]
+    ref = probes.tile_probe_plain(name, *ins)
+    before = probes.tile_probe.launches
+    got = probes.tile_probe(name, *ins)
+    assert probes.tile_probe.launches == before + 1
+    assert_close_to_max(got.cpu().numpy(), ref.cpu().numpy(), 1e-5, name)
+    if name in ("m1", "p2", "p3", "p5", "p6"):
+        assert torch.equal(got, ref)
+    out = torch.full_like(ref, float("nan"))
+    ptrs = [v.data_ptr() for v in ins] + [None] * (4 - len(ins))
+    kernels.launch("fdc_tile_probe", dev, probes.PROBES.index(name), *ptrs,
+                   probes._PROBE[name][1], out.data_ptr())
+    assert torch.equal(out, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EYE_F)
+def test_probe_kernel_with_random_f(name):
+    """The products whose own f is I or 2I, with a seeded random f."""
+    dev = cuda_device()
+    ins = [torch.from_numpy(a).to(dev) for a in random_f_inputs(name)]
     got = probes.tile_probe(name, *ins)
     ref = probes.tile_probe_plain(name, *ins)
     assert_close_to_max(got.cpu().numpy(), ref.cpu().numpy(), 1e-5, name)
@@ -294,3 +320,5 @@ def test_fft_wrappers_refuse_bad_cuda_inputs():
     with pytest.raises(ValueError):
         probes.tile_probe("p1", torch.zeros(32, 64, device=dev),
                           torch.zeros(64, 64, device=dev))
+    with pytest.raises(ValueError):  # contiguous, not 16-byte aligned
+        probes.tile_probe("p5", torch.zeros(4097, device=dev)[1:].view(64, 64))
