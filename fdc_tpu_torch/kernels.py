@@ -30,6 +30,8 @@ from pathlib import Path
 
 import torch
 
+from fdc_tpu_torch.runtime import tracing
+
 __all__ = ["library", "check", "launch", "stream_ptr", "build_info"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -120,10 +122,12 @@ def _build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call (tracing's span
+    ``fdc.kernel_build``: the build, or the load of a built library)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(_build()))
+        with tracing.span("fdc.kernel_build"):
+            lib = ctypes.CDLL(str(_build()))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

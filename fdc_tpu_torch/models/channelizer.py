@@ -78,6 +78,7 @@ from fdc_tpu_torch.runtime.emission import (
     PowerActivationEmitter,
     SegmentDetectionEmitter,
 )
+from fdc_tpu_torch.runtime import tracing
 from fdc_tpu_torch.utils.events import ChannelEvent, FileSink
 from fdc_tpu_torch.utils.logging import make_logger
 
@@ -143,7 +144,8 @@ def emitter_classes(native_emission):
 
 def _pairs_to_complex(a: np.ndarray) -> np.ndarray:
     """float32 [..., 2] pairs -> complex64 [...]."""
-    return np.ascontiguousarray(a, np.float32).view(np.complex64)[..., 0]
+    with tracing.span("fdc.pairs_to_complex"):
+        return np.ascontiguousarray(a, np.float32).view(np.complex64)[..., 0]
 
 
 def _to_host(tree):
@@ -151,11 +153,17 @@ def _to_host(tree):
     their own (a compiled step's next call overwrites its output tensors,
     on the CPU too); numpy leaves, as a host pipeline's worker ships
     them, pass as they are."""
+    with tracing.span("fdc.to_host"):
+        return _host_copy(tree)
+
+
+def _host_copy(tree):
     if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
+        return {k: _host_copy(v) for k, v in tree.items()}
     if isinstance(tree, np.ndarray):
         return tree
     t = tree.cpu()
+    tracing.count("d2h_bytes", t.nbytes)
     return (t.clone() if t is tree else t).numpy()
 
 
@@ -706,13 +714,18 @@ class FrequencyDomainChannelizer(nn.Module):
         at the stream's cursor (eagerly where the class opts out);
         returns the step's outputs."""
         step = compiled if self._graphed() else compiled.eager
-        self._carry, out = step(self._carry, torch.from_numpy(chunk),
-                                self._t0)
+        with tracing.span("fdc.step"):
+            self._carry, out = step(self._carry, torch.from_numpy(chunk),
+                                    self._t0)
         return out
 
     def process(self, samples: np.ndarray) -> ProcessResult:
         """Buffered streaming entry point: any-length complex64 sample
         arrays; whole batches are processed, the remainder is buffered."""
+        with tracing.call("fdc.process"):
+            return self._process(samples)
+
+    def _process(self, samples: np.ndarray) -> ProcessResult:
         cfg = self.config
         if self._spectra_mode:
             raise RuntimeError(
@@ -723,11 +736,14 @@ class FrequencyDomainChannelizer(nn.Module):
         self._samples_mode = True
         if self._carry is None:
             self._carry = self._jit_init()
-        x = np.concatenate([self._pending, np.asarray(samples, np.complex64)])
+        with tracing.span("fdc.input_concat"):
+            x = np.concatenate([self._pending,
+                                np.asarray(samples, np.complex64)])
         bs = self.batch_samples
         n_batches = len(x) // bs
         self._pending = x[n_batches * bs:]
-        result = self._new_result()
+        with tracing.span("fdc.result"):
+            result = self._new_result()
         dbg = []
         for i in range(n_batches):
             out = self._run_step(self._jit_step, x[i * bs:(i + 1) * bs])
@@ -735,7 +751,8 @@ class FrequencyDomainChannelizer(nn.Module):
             self._t0 += cfg.batch_blocks
             result.blocks_processed += cfg.batch_blocks
         if dbg:
-            result.debug_spectrum = np.concatenate(dbg)
+            with tracing.span("fdc.result"):
+                result.debug_spectrum = np.concatenate(dbg)
         return result
 
     def flush(self, finalize: bool = True) -> ProcessResult:
@@ -815,6 +832,10 @@ class FrequencyDomainChannelizer(nn.Module):
         front end is bypassed, so a stream uses this or :meth:`process`,
         not both; :meth:`flush` pads a buffered remainder with silent
         rows."""
+        with tracing.call("fdc.process_spectra"):
+            return self._process_spectra(spectra)
+
+    def _process_spectra(self, spectra: np.ndarray) -> ProcessResult:
         cfg = self.config
         if self._samples_mode:
             raise RuntimeError(
@@ -822,19 +843,20 @@ class FrequencyDomainChannelizer(nn.Module):
                 "process(); use one entry point per stream (reset() "
                 "starts a new one)"
             )
-        spectra = np.ascontiguousarray(spectra, np.complex64)
-        if spectra.ndim != 2 or spectra.shape[1] != cfg.blocksize:
-            raise ValueError(
-                f"spectra must be [B, {cfg.blocksize}], got {spectra.shape}"
-            )
+        with tracing.span("fdc.input_concat"):
+            spectra = np.ascontiguousarray(spectra, np.complex64)
+            if spectra.ndim != 2 or spectra.shape[1] != cfg.blocksize:
+                raise ValueError(f"spectra must be [B, {cfg.blocksize}], "
+                                 f"got {spectra.shape}")
+            spectra = np.concatenate([self._pending_spec, spectra])
         if self._carry is None:
             self._carry = self._jit_init()
         self._spectra_mode = True
-        spectra = np.concatenate([self._pending_spec, spectra])
         bb = cfg.batch_blocks
         n_batches = spectra.shape[0] // bb
         self._pending_spec = spectra[n_batches * bb:]
-        result = self._new_result()
+        with tracing.span("fdc.result"):
+            result = self._new_result()
         dbg = []
         for i in range(n_batches):
             out = self._run_step(self._jit_step_spectra,
@@ -843,7 +865,8 @@ class FrequencyDomainChannelizer(nn.Module):
             self._t0 += bb
             result.blocks_processed += bb
         if dbg:
-            result.debug_spectrum = np.concatenate(dbg)
+            with tracing.span("fdc.result"):
+                result.debug_spectrum = np.concatenate(dbg)
         return result
 
     def _consume_outputs(self, out, result: ProcessResult, dbg: list,
@@ -852,32 +875,38 @@ class FrequencyDomainChannelizer(nn.Module):
         # batch's own t0, since it consumes outputs deferred. Every output
         # is copied to the host here: the compiled step's next call
         # overwrites them
-        t0 = self._t0 if t0 is None else t0
+        with tracing.span("fdc.consume"):
+            self._consume(out, result, dbg,
+                          self._t0 if t0 is None else t0)
+
+    def _consume(self, out, result: ProcessResult, dbg: list, t0: int):
         if self.throughput:
             for bucket, mat in zip(self.throughput.buckets,
                                    out["throughput_buckets"]):
                 m = _pairs_to_complex(_to_host(mat))  # [C, B*out_len]
-                for row, chan in enumerate(bucket.channel_ids):
-                    result.throughput[chan] = np.concatenate(
-                        [result.throughput[chan], m[row]]
-                    )
+                with tracing.span("fdc.assemble"):
+                    for row, chan in enumerate(bucket.channel_ids):
+                        result.throughput[chan] = np.concatenate(
+                            [result.throughput[chan], m[row]]
+                        )
         if self.power_bank:
             po = _to_host(out["powact"])
             po["extract"] = {
                 w: _pairs_to_complex(v) for w, v in po["extract"].items()
             }
-            result.events.extend(self.power_emitter.process_step(po, t0))
+            with tracing.span("fdc.emit", "powact"):
+                result.events.extend(self.power_emitter.process_step(po, t0))
         for i in range(len(self.segments)):
             so = _to_host(out[f"seg{i}"])
             so["extract"] = _pairs_to_complex(so["extract"])
             if "extract_narrow" in so:
                 so["extract_narrow"] = _pairs_to_complex(so["extract_narrow"])
-            result.events.extend(
-                self.segment_emitters[i].process_step(so, so["slot_meta"],
-                                                      t0)
-            )
-            result.segment_power[i] = np.concatenate(
-                [result.segment_power[i], so["power"]]
-            )
+            with tracing.span("fdc.emit", i):
+                result.events.extend(self.segment_emitters[i].process_step(
+                    so, so["slot_meta"], t0))
+            with tracing.span("fdc.assemble"):
+                result.segment_power[i] = np.concatenate(
+                    [result.segment_power[i], so["power"]]
+                )
         if self.config.debug and "debug_spectrum" in out:
             dbg.append(_pairs_to_complex(_to_host(out["debug_spectrum"])))

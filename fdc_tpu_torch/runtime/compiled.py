@@ -59,6 +59,13 @@ Launch accounting: a kernel wrapper counts its launches in its Python
 body, which under replay runs only at capture. Each graph records the
 wrappers' counts during its capture and adds them on every replay, so
 the counts equal the eager step's.
+
+Tracing (``runtime.tracing``, when enabled): a call's input copies are
+span ``fdc.copy_in`` (their bytes counter ``h2d_bytes``), a new shape's
+capture ``fdc.capture`` (on the CPU its first, guarded run; counter
+``graph_captures``), the replay ``fdc.replay`` (on the CPU the eager
+run), and a synchronisation of the step's stream after it
+``fdc.device_wait``, which only tracing adds.
 """
 
 from __future__ import annotations
@@ -73,6 +80,8 @@ from typing import Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from fdc_tpu_torch.runtime import tracing
 
 __all__ = [
     "CaptureError",
@@ -405,25 +414,39 @@ class CompiledStep:
         if fresh:
             entry = _Entry(_map(lambda x: torch.empty(
                 x.shape, dtype=x.dtype, device=self.device), list(inputs)))
-        for _, buf, x in _pairs(entry.inputs, list(inputs), "inputs"):
-            if not _same(buf, x):
-                buf.copy_(x)
-        if t0 is not None:
-            self._t0.fill_(int(t0))
+        with tracing.span("fdc.copy_in"):
+            for _, buf, x in _pairs(entry.inputs, list(inputs), "inputs"):
+                if not _same(buf, x):
+                    buf.copy_(x)
+                    tracing.count("h2d_bytes", buf.nbytes)
+            if t0 is not None:
+                self._t0.fill_(int(t0))
+        if fresh:
+            tracing.count("graph_captures", 1)
         if self.device.type == "cuda":
             with torch.cuda.device(self.device):
-                # the capture ran every segment but the last
-                self._replay(entry, self._capture(entry) if fresh else 0)
+                start = 0
+                if fresh:
+                    with tracing.span("fdc.capture"):
+                        # the capture ran every segment but the last
+                        start = self._capture(entry)
+                with tracing.span("fdc.replay"):
+                    self._replay(entry, start)
             for fn, n in entry.launches.items():
                 fn.launches += n
         elif fresh:
-            with _CaptureGuard():
+            with tracing.span("fdc.capture"), _CaptureGuard():
                 out = self._body(entry, fresh=True)
             entry.out = _map(lambda t: _own(t, self.device), out)
         else:
-            out = self._body(entry, fresh=False)
-            for _, o, t in _pairs(entry.out, out, "out"):
-                o.copy_(t)
+            with tracing.span("fdc.replay"):
+                out = self._body(entry, fresh=False)
+                for _, o, t in _pairs(entry.out, out, "out"):
+                    o.copy_(t)
+        if tracing.enabled():
+            with tracing.span("fdc.device_wait"):
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
         if fresh:
             self._entries[key] = entry
         return self._carry, entry.out
