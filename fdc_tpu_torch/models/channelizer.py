@@ -157,6 +157,27 @@ def _to_host(tree):
         return _host_copy(tree)
 
 
+def _put(dst: torch.Tensor, src: np.ndarray):
+    """``dst`` (rows of a complex64 staging slot) <- ``src``, converted as
+    ``np.asarray(src, np.complex64)`` converts: by torch's copy, which
+    splits a large copy over its intra-op threads, where torch can take
+    ``src`` as it is; else by numpy's assignment."""
+    if (src.dtype in (np.complex64, np.complex128)
+            and src.flags.c_contiguous and src.flags.writeable):
+        dst.copy_(torch.from_numpy(src))
+    else:
+        dst.numpy()[...] = src
+
+
+def _rest(pend: np.ndarray, x: np.ndarray, pos: int) -> np.ndarray:
+    """The stream's remainder, ``pend`` then ``x[pos:]``, as complex64 in
+    memory of its own (the caller may reuse ``x``)."""
+    rest = np.empty((len(pend) + len(x) - pos,) + x.shape[1:], np.complex64)
+    rest[:len(pend)] = pend
+    rest[len(pend):] = x[pos:]
+    return rest
+
+
 def _host_copy(tree):
     if isinstance(tree, dict):
         return {k: _host_copy(v) for k, v in tree.items()}
@@ -185,7 +206,11 @@ class FrequencyDomainChannelizer(nn.Module):
     outputs are overwritten by the next step, so ``_consume_outputs``
     copies them to the host first, and ``self._carry`` is the compiled
     step's static carry. A subclass whose step cannot run so sets
-    ``compile_step = False`` and runs ``_device_step`` eagerly.
+    ``compile_step = False`` and runs ``_device_step`` eagerly. Each batch
+    is written once, the buffered remainder first, into one reused
+    staging slot (page-locked on the card, so the step's copy-in does not
+    block the host); what is left of less than a batch is buffered as a
+    copy.
     """
 
     compile_step = True
@@ -383,6 +408,10 @@ class FrequencyDomainChannelizer(nn.Module):
         self._pending_spec = np.zeros((0, cfg.blocksize), np.complex64)
         self._spectra_mode = False
         self._samples_mode = False
+        # the staging slot a batch is written into and copied in from
+        # (``_staging_slot``), and the event behind the step that read it
+        self._slot = None
+        self._slot_read = None
         self.to(self.device)
         # the compiled steps (JAX: jax.jit of the same functions) share
         # one graph memory pool; the init only allocates the carry, which
@@ -709,50 +738,96 @@ class FrequencyDomainChannelizer(nn.Module):
         or the instance's."""
         return self.compile_step
 
-    def _run_step(self, compiled: CompiledStep, chunk: np.ndarray):
-        """One batch (host samples or spectrum rows) through ``compiled``
-        at the stream's cursor (eagerly where the class opts out);
-        returns the step's outputs."""
+    def _run_step(self, compiled: CompiledStep, slot: torch.Tensor):
+        """One batch, the staging slot of host samples or spectrum rows,
+        through ``compiled`` at the stream's cursor (eagerly where the
+        class opts out); returns the step's outputs. On the card the
+        slot's event is recorded behind the step: the slot's next fill
+        waits for it."""
         step = compiled if self._graphed() else compiled.eager
         with tracing.span("fdc.step"):
-            self._carry, out = step(self._carry, torch.from_numpy(chunk),
-                                    self._t0)
+            self._carry, out = step(self._carry, slot, self._t0)
+            if step is compiled:
+                tracing.count("h2d_staged_bytes", slot.nbytes)
+            if self._slot_read is not None:
+                self._slot_read.record(torch.cuda.current_stream(self.device))
         return out
+
+    def _staging_slot(self, shape) -> torch.Tensor:
+        """The stream's staging slot of ``shape``, complex64: page-locked
+        where the step's device is CUDA, so that the step's copy-in does
+        not block the host. Made on first use and when the shape changes;
+        returned once the step that last read it has copied it in (a wait
+        is counted as ``stage_waits``)."""
+        slot = self._slot
+        if slot is None or tuple(slot.shape) != shape:
+            cuda = self.device.type == "cuda"
+            slot = self._slot = torch.empty(shape, dtype=torch.complex64,
+                                            pin_memory=cuda)
+            self._slot_read = torch.cuda.Event() if cuda else None
+        elif self._slot_read is not None and not self._slot_read.query():
+            tracing.count("stage_waits", 1)
+            self._slot_read.synchronize()
+        return slot
+
+    def _stage(self, pend: np.ndarray, x: np.ndarray, pos: int, rows: int):
+        """The staging slot written with the stream's next ``rows`` rows
+        (samples or spectrum rows): the buffered ``pend`` first, then ``x``
+        from row ``pos``. Returns (slot, what is left of ``pend``, the
+        next row of ``x``)."""
+        slot = self._staging_slot((rows,) + x.shape[1:])
+        k = min(len(pend), rows)
+        _put(slot[:k], pend[:k])
+        _put(slot[k:], x[pos:pos + rows - k])
+        return slot, pend[k:], pos + rows - k
+
+    def _run_batches(self, compiled: CompiledStep, pend: np.ndarray,
+                     x: np.ndarray, rows: int):
+        """Every whole batch of ``rows`` rows of the stream ``pend`` then
+        ``x`` through ``compiled``, each written into the staging slot;
+        returns (the result, the remainder in memory of its own)."""
+        bb = self.config.batch_blocks
+        with tracing.span("fdc.result"):
+            result = self._new_result()
+        dbg = []
+        pos = 0
+        for _ in range((len(pend) + len(x)) // rows):
+            with tracing.span("fdc.input_concat"):
+                slot, pend, pos = self._stage(pend, x, pos, rows)
+            out = self._run_step(compiled, slot)
+            self._consume_outputs(out, result, dbg)
+            self._t0 += bb
+            result.blocks_processed += bb
+        with tracing.span("fdc.input_concat"):
+            rest = _rest(pend, x, pos)
+        if dbg:
+            with tracing.span("fdc.result"):
+                result.debug_spectrum = np.concatenate(dbg)
+        return result, rest
 
     def process(self, samples: np.ndarray) -> ProcessResult:
         """Buffered streaming entry point: any-length complex64 sample
-        arrays; whole batches are processed, the remainder is buffered."""
+        arrays; whole batches are processed, the remainder is buffered
+        (copied: the caller may reuse ``samples`` once this returns)."""
         with tracing.call("fdc.process"):
             return self._process(samples)
 
     def _process(self, samples: np.ndarray) -> ProcessResult:
-        cfg = self.config
         if self._spectra_mode:
             raise RuntimeError(
                 "process() called on a stream already driven by "
                 "process_spectra(); use one entry point per stream "
                 "(reset() starts a new one)"
             )
+        x = np.asarray(samples)
+        if x.ndim != 1:
+            raise ValueError(f"samples must be one-dimensional, got shape "
+                             f"{x.shape}")
         self._samples_mode = True
         if self._carry is None:
             self._carry = self._jit_init()
-        with tracing.span("fdc.input_concat"):
-            x = np.concatenate([self._pending,
-                                np.asarray(samples, np.complex64)])
-        bs = self.batch_samples
-        n_batches = len(x) // bs
-        self._pending = x[n_batches * bs:]
-        with tracing.span("fdc.result"):
-            result = self._new_result()
-        dbg = []
-        for i in range(n_batches):
-            out = self._run_step(self._jit_step, x[i * bs:(i + 1) * bs])
-            self._consume_outputs(out, result, dbg)
-            self._t0 += cfg.batch_blocks
-            result.blocks_processed += cfg.batch_blocks
-        if dbg:
-            with tracing.span("fdc.result"):
-                result.debug_spectrum = np.concatenate(dbg)
+        result, self._pending = self._run_batches(
+            self._jit_step, self._pending, x, self.batch_samples)
         return result
 
     def flush(self, finalize: bool = True) -> ProcessResult:
@@ -843,30 +918,16 @@ class FrequencyDomainChannelizer(nn.Module):
                 "process(); use one entry point per stream (reset() "
                 "starts a new one)"
             )
-        with tracing.span("fdc.input_concat"):
-            spectra = np.ascontiguousarray(spectra, np.complex64)
-            if spectra.ndim != 2 or spectra.shape[1] != cfg.blocksize:
-                raise ValueError(f"spectra must be [B, {cfg.blocksize}], "
-                                 f"got {spectra.shape}")
-            spectra = np.concatenate([self._pending_spec, spectra])
+        spectra = np.asarray(spectra)
+        if spectra.ndim != 2 or spectra.shape[1] != cfg.blocksize:
+            raise ValueError(f"spectra must be [B, {cfg.blocksize}], "
+                             f"got {spectra.shape}")
         if self._carry is None:
             self._carry = self._jit_init()
         self._spectra_mode = True
-        bb = cfg.batch_blocks
-        n_batches = spectra.shape[0] // bb
-        self._pending_spec = spectra[n_batches * bb:]
-        with tracing.span("fdc.result"):
-            result = self._new_result()
-        dbg = []
-        for i in range(n_batches):
-            out = self._run_step(self._jit_step_spectra,
-                                 spectra[i * bb:(i + 1) * bb])
-            self._consume_outputs(out, result, dbg)
-            self._t0 += bb
-            result.blocks_processed += bb
-        if dbg:
-            with tracing.span("fdc.result"):
-                result.debug_spectrum = np.concatenate(dbg)
+        result, self._pending_spec = self._run_batches(
+            self._jit_step_spectra, self._pending_spec, spectra,
+            cfg.batch_blocks)
         return result
 
     def _consume_outputs(self, out, result: ProcessResult, dbg: list,

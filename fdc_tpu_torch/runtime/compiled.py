@@ -10,7 +10,10 @@ with one buffer discipline on both devices:
 - **Static inputs.** One set of input buffers per input shape, and
   ``t0`` as a 0-d int32 tensor: each call copies its inputs in and
   writes ``t0``. A Python ``int`` would be baked into the graph at
-  capture.
+  capture. On the card a page-locked host input is copied without
+  blocking the host, queued on the stream the graph replays on; the
+  caller keeps it unchanged until the copy is done. Any other input is
+  copied as ``copy_`` copies it.
 - **Static carry.** The carry leaves are ordinary allocations outside
   the graph pool. The step's new carry is copied back into them at the
   end of the captured region; the call returns them, and the caller
@@ -61,7 +64,8 @@ wrappers' counts during its capture and adds them on every replay, so
 the counts equal the eager step's.
 
 Tracing (``runtime.tracing``, when enabled): a call's input copies are
-span ``fdc.copy_in`` (their bytes counter ``h2d_bytes``), a new shape's
+span ``fdc.copy_in`` (their bytes counter ``h2d_bytes``; a page-locked
+input's copy is only queued there), a new shape's
 capture ``fdc.capture`` (on the CPU its first, guarded run; counter
 ``graph_captures``), the replay ``fdc.replay`` (on the CPU the eager
 run), and a synchronisation of the step's stream after it
@@ -414,16 +418,17 @@ class CompiledStep:
         if fresh:
             entry = _Entry(_map(lambda x: torch.empty(
                 x.shape, dtype=x.dtype, device=self.device), list(inputs)))
+        cuda = self.device.type == "cuda"
         with tracing.span("fdc.copy_in"):
             for _, buf, x in _pairs(entry.inputs, list(inputs), "inputs"):
                 if not _same(buf, x):
-                    buf.copy_(x)
+                    buf.copy_(x, non_blocking=cuda and x.is_pinned())
                     tracing.count("h2d_bytes", buf.nbytes)
             if t0 is not None:
                 self._t0.fill_(int(t0))
         if fresh:
             tracing.count("graph_captures", 1)
-        if self.device.type == "cuda":
+        if cuda:
             with torch.cuda.device(self.device):
                 start = 0
                 if fresh:
@@ -445,7 +450,7 @@ class CompiledStep:
                     o.copy_(t)
         if tracing.enabled():
             with tracing.span("fdc.device_wait"):
-                if self.device.type == "cuda":
+                if cuda:
                     torch.cuda.current_stream(self.device).synchronize()
         if fresh:
             self._entries[key] = entry

@@ -6,7 +6,8 @@ step and the kernel library open named spans at each layer boundary
 ``fdc.capture``, ``fdc.replay``, ``fdc.device_wait``, ``fdc.consume``,
 ``fdc.to_host``, ``fdc.pairs_to_complex``, ``fdc.emit``,
 ``fdc.assemble``, ``fdc.result``, ``fdc.kernel_build``) and count what
-they move (``h2d_bytes``, ``d2h_bytes``, ``graph_captures``)::
+they move and wait for (``h2d_bytes``, ``h2d_staged_bytes``,
+``stage_waits``, ``d2h_bytes``, ``graph_captures``)::
 
     from fdc_tpu_torch.runtime import tracing
 

@@ -3,7 +3,8 @@
 Off (the default), ``process()`` records nothing and reads no clock for
 it, and never opens a profiler range; on, every call holds the span tree
 of the host path (``fdc.process`` down to ``fdc.emit``), the counters
-hold the bytes copied in and out and the captures, and the outputs and
+hold the bytes copied in (all of them from the staging slot) and out and
+the captures, and the outputs and
 events are the same as with tracing off. Under ``torch.profiler`` the
 spans land in its Chrome trace as user annotations.
 """
@@ -35,6 +36,15 @@ PARENT = {
 }
 # every call's spans; the first call captures where the later ones replay
 EVERY_CALL = set(PARENT) - {"fdc.capture", "fdc.replay"}
+# counter -> the span it is counted in; the first call's capture adds
+# graph_captures, a fill that finds its slot's copy-in in flight (only on
+# the card) stage_waits
+COUNTED_IN = {
+    "h2d_bytes": "fdc.copy_in", "h2d_staged_bytes": "fdc.step",
+    "d2h_bytes": "fdc.to_host", "graph_captures": "fdc.step",
+    "stage_waits": "fdc.input_concat",
+}
+EVERY_CALL_COUNTERS = set(COUNTED_IN) - {"graph_captures", "stage_waits"}
 
 
 @pytest.fixture(autouse=True)
@@ -198,7 +208,8 @@ def test_summary_self_time_on_hand_built_records():
         Record("fdc.process", None, -1, 2, 300, -1),  # still open
     ]
     counters = {("h2d_bytes", 0): 8, ("h2d_bytes", 1): 8,
-                ("graph_captures", 0): 1}
+                ("h2d_staged_bytes", 0): 8, ("h2d_staged_bytes", 1): 8,
+                ("stage_waits", 1): 1, ("graph_captures", 0): 1}
     s = tracing.summarize(recs, counters)
     assert s["spans"]["fdc.process"] == {"count": 2, "total_ns": 160,
                                          "self_ns": 160 - 40 - 35 - 30}
@@ -207,12 +218,16 @@ def test_summary_self_time_on_hand_built_records():
     assert s["spans"]["fdc.consume"]["self_ns"] == 35 - 10 - 15
     assert s["spans"]["fdc.emit"] == {"count": 2, "total_ns": 25,
                                       "self_ns": 25}
-    assert s["counters"] == {"h2d_bytes": 16, "graph_captures": 1}
+    assert s["counters"] == {"h2d_bytes": 16, "h2d_staged_bytes": 16,
+                             "stage_waits": 1, "graph_captures": 1}
     one = tracing.summarize(recs, counters, calls=[1])
     assert one["spans"] == {
         "fdc.process": {"count": 1, "total_ns": 60, "self_ns": 30},
         "fdc.step": {"count": 1, "total_ns": 30, "self_ns": 30}}
-    assert one["counters"] == {"h2d_bytes": 8}
+    assert one["counters"] == {"h2d_bytes": 8, "h2d_staged_bytes": 8,
+                               "stage_waits": 1}
+    assert tracing.summarize(recs, counters, calls=[0])["counters"] == {
+        "h2d_bytes": 8, "h2d_staged_bytes": 8, "graph_captures": 1}
 
 
 def test_byte_and_capture_counters():
@@ -225,10 +240,31 @@ def test_byte_and_capture_counters():
     out_bytes = sum(t.nbytes for t in _leaves(out))
     for call in range(CALLS):
         c = tracing.summary(calls=[call])["counters"]
+        assert set(c) == EVERY_CALL_COUNTERS | (
+            {"graph_captures"} if call == 0 else set())
         assert c["h2d_bytes"] == cfg.batch_blocks * cfg.inplen * 8
+        assert c["h2d_staged_bytes"] == c["h2d_bytes"]
         assert c["d2h_bytes"] == out_bytes
         assert c.get("graph_captures", 0) == (call == 0)
     assert tracing.summary()["counters"]["graph_captures"] == 1
+
+
+@pytest.mark.parametrize("entry", ["process", "process_spectra"])
+def test_each_counter_counted_in_its_span(monkeypatch, entry):
+    fdc = channelizer()
+    x = input_of(fdc, entry)
+    seen = set()
+    count = tracing.count
+
+    def located(name, n):
+        seen.add((name, tracing.records()[tracing._stack[-1]].name))
+        count(name, n)
+
+    monkeypatch.setattr(tracing, "count", located)
+    tracing.enable()
+    run(fdc, entry, x)
+    assert seen == {(k, v) for k, v in COUNTED_IN.items()
+                    if k != "stage_waits"}
 
 
 def _leaves(tree):
