@@ -148,13 +148,23 @@ def _pairs_to_complex(a: np.ndarray) -> np.ndarray:
         return np.ascontiguousarray(a, np.float32).view(np.complex64)[..., 0]
 
 
-def _to_host(tree):
-    """Nested dict of tensors -> the same dict of numpy arrays in memory of
-    their own (a compiled step's next call overwrites its output tensors,
-    on the CPU too); numpy leaves, as a host pipeline's worker ships
-    them, pass as they are."""
+def _to_host(tree, mirror: Optional["HostMirror"] = None):
+    """Nested dicts and lists of tensors -> the same tree of numpy arrays
+    (a compiled step's next call overwrites its output tensors, on the CPU
+    too); numpy leaves, as a host pipeline's worker ships them, pass as
+    they are.
+
+    Without ``mirror`` each tensor leaf is copied into memory of its own.
+    With one, every leaf on the mirror's device or the CPU is copied into
+    the mirror's leaf of the same place (on the card without blocking,
+    then one wait for all of them) and returned as a view of it; a leaf on
+    another device is copied as without one. The next call with the same
+    mirror overwrites those views: nothing that outlives the caller's use
+    of this batch may point into them."""
     with tracing.span("fdc.to_host"):
-        return _host_copy(tree)
+        if mirror is None:
+            return _host_copy(tree)
+        return mirror.copy(tree)
 
 
 def _put(dst: torch.Tensor, src: np.ndarray):
@@ -181,11 +191,93 @@ def _rest(pend: np.ndarray, x: np.ndarray, pos: int) -> np.ndarray:
 def _host_copy(tree):
     if isinstance(tree, dict):
         return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
     if isinstance(tree, np.ndarray):
         return tree
     t = tree.cpu()
     tracing.count("d2h_bytes", t.nbytes)
     return (t.clone() if t is tree else t).numpy()
+
+
+class HostMirror:
+    """A host copy of a step's output tree, kept across calls: a leaf for
+    each tensor leaf on ``device`` or the CPU, of its shape and dtype, all
+    views of one buffer (page-locked where ``device`` is CUDA, so that the
+    copies into it do not block the host). The buffer is made on the first
+    :meth:`copy` and again only when the leaves' shapes or dtypes change."""
+
+    _ALIGN = 256  # bytes between the starts of two leaves
+
+    def __init__(self, device: torch.device):
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.signature = None
+        self.buffer = None
+        self._leaves = []  # tensors over ``buffer``
+        self._arrays = []  # their numpy views
+        self._order = []  # the order their copies are queued in
+        self._nbytes = 0
+        self._done = torch.cuda.Event() if device.type == "cuda" else None
+
+    def _takes(self, t: torch.Tensor) -> bool:
+        return t.device == self.device or t.device.type == "cpu"
+
+    def _sources(self, tree, found: list):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                self._sources(v, found)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                self._sources(v, found)
+        elif isinstance(tree, torch.Tensor) and self._takes(tree):
+            found.append(tree)
+
+    def _fit(self, srcs: list):
+        sig = tuple((tuple(t.shape), t.dtype) for t in srcs)
+        if sig == self.signature:
+            return
+        offsets, end = [], 0
+        for t in srcs:
+            offsets.append(end)
+            end += -(-t.nbytes // self._ALIGN) * self._ALIGN
+        self.buffer = torch.empty(end, dtype=torch.uint8,
+                                  pin_memory=self.device.type == "cuda")
+        self._leaves = [
+            self.buffer[o:o + t.nbytes].view(t.dtype).view(t.shape)
+            for o, t in zip(offsets, srcs)]
+        self._arrays = [t.numpy() for t in self._leaves]
+        # the largest copies are queued first: the card copies them while
+        # the host queues the small ones
+        self._order = sorted(range(len(srcs)), key=lambda i: -srcs[i].nbytes)
+        self._nbytes = sum(t.nbytes for t in srcs)
+        self.signature = sig
+
+    def _views(self, tree, arrays):
+        if isinstance(tree, dict):
+            return {k: self._views(v, arrays) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self._views(v, arrays) for v in tree)
+        if isinstance(tree, torch.Tensor):
+            return next(arrays) if self._takes(tree) else _host_copy(tree)
+        return tree
+
+    def copy(self, tree):
+        """``tree`` with its leaves copied into the mirror, as views of it;
+        returns once every copy has landed."""
+        srcs = []
+        self._sources(tree, srcs)
+        self._fit(srcs)
+        for i in self._order:
+            self._leaves[i].copy_(srcs[i], non_blocking=True)
+        if srcs:
+            if self._done is not None:
+                self._done.record(torch.cuda.current_stream(self.device))
+                self._done.synchronize()
+            tracing.count("d2h_bytes", self._nbytes)
+            tracing.count("d2h_mirrored_bytes", self._nbytes)
+        return self._views(tree, iter(self._arrays))
 
 
 class FrequencyDomainChannelizer(nn.Module):
@@ -204,7 +296,9 @@ class FrequencyDomainChannelizer(nn.Module):
     The streaming API runs the step compiled (``_jit_step``,
     ``_jit_step_spectra``, as ``fdc_tpu`` names its jitted steps): its
     outputs are overwritten by the next step, so ``_consume_outputs``
-    copies them to the host first, and ``self._carry`` is the compiled
+    copies them to the host first, into one reused host mirror
+    (:class:`HostMirror`, page-locked on the card) whose views nothing
+    kept past the batch points into, and ``self._carry`` is the compiled
     step's static carry. A subclass whose step cannot run so sets
     ``compile_step = False`` and runs ``_device_step`` eagerly. Each batch
     is written once, the buffered remainder first, into one reused
@@ -412,6 +506,9 @@ class FrequencyDomainChannelizer(nn.Module):
         # (``_staging_slot``), and the event behind the step that read it
         self._slot = None
         self._slot_read = None
+        # the host mirror the step's outputs are copied out into
+        # (``_consume``); reset() keeps it
+        self._mirror = HostMirror(self.device)
         self.to(self.device)
         # the compiled steps (JAX: jax.jit of the same functions) share
         # one graph memory pool; the init only allocates the carry, which
@@ -941,24 +1038,30 @@ class FrequencyDomainChannelizer(nn.Module):
                           self._t0 if t0 is None else t0)
 
     def _consume(self, out, result: ProcessResult, dbg: list, t0: int):
+        # the whole tree into the reused host mirror: what is kept past
+        # this batch is copied out of it (the concatenations below, the
+        # emitters' own copies; the burst extract and the debug rows here)
+        out = _to_host(out, self._mirror)
         if self.throughput:
             for bucket, mat in zip(self.throughput.buckets,
                                    out["throughput_buckets"]):
-                m = _pairs_to_complex(_to_host(mat))  # [C, B*out_len]
+                m = _pairs_to_complex(mat)  # [C, B*out_len]
                 with tracing.span("fdc.assemble"):
                     for row, chan in enumerate(bucket.channel_ids):
                         result.throughput[chan] = np.concatenate(
                             [result.throughput[chan], m[row]]
                         )
         if self.power_bank:
-            po = _to_host(out["powact"])
+            po = out["powact"]
+            # the Python emitter keeps a history row as a view
             po["extract"] = {
-                w: _pairs_to_complex(v) for w, v in po["extract"].items()
+                w: _pairs_to_complex(v).copy()
+                for w, v in po["extract"].items()
             }
             with tracing.span("fdc.emit", "powact"):
                 result.events.extend(self.power_emitter.process_step(po, t0))
         for i in range(len(self.segments)):
-            so = _to_host(out[f"seg{i}"])
+            so = out[f"seg{i}"]
             so["extract"] = _pairs_to_complex(so["extract"])
             if "extract_narrow" in so:
                 so["extract_narrow"] = _pairs_to_complex(so["extract_narrow"])
@@ -970,4 +1073,4 @@ class FrequencyDomainChannelizer(nn.Module):
                     [result.segment_power[i], so["power"]]
                 )
         if self.config.debug and "debug_spectrum" in out:
-            dbg.append(_pairs_to_complex(_to_host(out["debug_spectrum"])))
+            dbg.append(_pairs_to_complex(out["debug_spectrum"]).copy())

@@ -7,7 +7,8 @@ step and the kernel library open named spans at each layer boundary
 ``fdc.to_host``, ``fdc.pairs_to_complex``, ``fdc.emit``,
 ``fdc.assemble``, ``fdc.result``, ``fdc.kernel_build``) and count what
 they move and wait for (``h2d_bytes``, ``h2d_staged_bytes``,
-``stage_waits``, ``d2h_bytes``, ``graph_captures``)::
+``stage_waits``, ``d2h_bytes``, ``d2h_mirrored_bytes``,
+``graph_captures``)::
 
     from fdc_tpu_torch.runtime import tracing
 

@@ -3,8 +3,8 @@
 Off (the default), ``process()`` records nothing and reads no clock for
 it, and never opens a profiler range; on, every call holds the span tree
 of the host path (``fdc.process`` down to ``fdc.emit``), the counters
-hold the bytes copied in (all of them from the staging slot) and out and
-the captures, and the outputs and
+hold the bytes copied in (all of them from the staging slot) and out (all
+of them into the output mirror) and the captures, and the outputs and
 events are the same as with tracing off. Under ``torch.profiler`` the
 spans land in its Chrome trace as user annotations.
 """
@@ -41,8 +41,8 @@ EVERY_CALL = set(PARENT) - {"fdc.capture", "fdc.replay"}
 # the card) stage_waits
 COUNTED_IN = {
     "h2d_bytes": "fdc.copy_in", "h2d_staged_bytes": "fdc.step",
-    "d2h_bytes": "fdc.to_host", "graph_captures": "fdc.step",
-    "stage_waits": "fdc.input_concat",
+    "d2h_bytes": "fdc.to_host", "d2h_mirrored_bytes": "fdc.to_host",
+    "graph_captures": "fdc.step", "stage_waits": "fdc.input_concat",
 }
 EVERY_CALL_COUNTERS = set(COUNTED_IN) - {"graph_captures", "stage_waits"}
 
@@ -245,6 +245,7 @@ def test_byte_and_capture_counters():
         assert c["h2d_bytes"] == cfg.batch_blocks * cfg.inplen * 8
         assert c["h2d_staged_bytes"] == c["h2d_bytes"]
         assert c["d2h_bytes"] == out_bytes
+        assert c["d2h_mirrored_bytes"] == c["d2h_bytes"]
         assert c.get("graph_captures", 0) == (call == 0)
     assert tracing.summary()["counters"]["graph_captures"] == 1
 
