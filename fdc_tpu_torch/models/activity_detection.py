@@ -26,8 +26,7 @@ from torch import nn
 
 from fdc_tpu_torch.config import VerboseMode, solve_segment_vcm
 from fdc_tpu_torch.models.channelizer import (
-    _pairs_to_complex,
-    _to_host,
+    emit_segment,
     emitter_classes,
     resolve_device,
 )
@@ -36,7 +35,13 @@ from fdc_tpu_torch.models.segment_detection import (
     scan_slots_multi,
 )
 from fdc_tpu_torch.ops import detect
-from fdc_tpu_torch.runtime.compiled import CompiledStep, install_carry
+from fdc_tpu_torch.runtime.compiled import (
+    CompiledStep,
+    HostMirror,
+    StagingSlot,
+    _to_host,
+    install_carry,
+)
 from fdc_tpu_torch.utils.logging import make_logger
 
 __all__ = ["ActivityDetectionChannelizer", "ActivityDetectionRunner"]
@@ -147,7 +152,9 @@ class ActivityDetectionRunner:
     ``{"prev_spec": [N] complex64, "segs": [slot tables]}``, the JAX
     runner's (``fdc_tpu_torch.convert`` moves it between the two); the
     step runs compiled (``_jit_step``) unless ``compile_step`` is set
-    False."""
+    False. Each call's spectra are written into the runner's staging slot
+    and its outputs copied out into its host mirror
+    (``runtime.compiled``)."""
 
     compile_step = True
 
@@ -166,6 +173,8 @@ class ActivityDetectionRunner:
         self._jit_step = CompiledStep(self._device_step, adc.device,
                                       takes_t0=False)
         self._jit_init = self._device_init
+        self._staging = StagingSlot(adc.device)
+        self._mirror = HostMirror()
 
     def _device_init(self):
         return {
@@ -196,16 +205,14 @@ class ActivityDetectionRunner:
         in emission order."""
         if self._carry is None:
             self._carry = self._jit_init()
-        spectra = np.ascontiguousarray(spectra, np.complex64)
-        nb = spectra.shape[0]
+        spectra = np.asarray(spectra)
+        slot = self._staging.fill(spectra.shape, spectra)
         step = self._jit_step if self.compile_step else self._jit_step.eager
-        self._carry, outs = step(self._carry, torch.from_numpy(spectra))
+        self._carry, outs = step(self._carry, slot)
+        self._staging.read()
         events = []
-        for em, so in zip(self.emitters, outs):
-            so = _to_host(so)
-            so["extract"] = _pairs_to_complex(so["extract"])
-            if "extract_narrow" in so:
-                so["extract_narrow"] = _pairs_to_complex(so["extract_narrow"])
-            events.extend(em.process_step(so, so["slot_meta"], self._t0))
-        self._t0 += nb
+        for i, (em, so) in enumerate(zip(self.emitters, _to_host(
+                outs, self._mirror))):
+            events.extend(emit_segment(em, so, self._t0, i))
+        self._t0 += len(spectra)
         return events

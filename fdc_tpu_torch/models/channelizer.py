@@ -70,6 +70,9 @@ from fdc_tpu_torch.ops.framing import frame_blocks
 from fdc_tpu_torch.runtime.compiled import (
     CompiledStep,
     GraphPool,
+    HostMirror,
+    StagingSlot,
+    _to_host,
     install_carry,
 )
 from fdc_tpu_torch.runtime.emission import (
@@ -148,136 +151,15 @@ def _pairs_to_complex(a: np.ndarray) -> np.ndarray:
         return np.ascontiguousarray(a, np.float32).view(np.complex64)[..., 0]
 
 
-def _to_host(tree, mirror: Optional["HostMirror"] = None):
-    """Nested dicts and lists of tensors -> the same tree of numpy arrays
-    (a compiled step's next call overwrites its output tensors, on the CPU
-    too); numpy leaves, as a host pipeline's worker ships them, pass as
-    they are.
-
-    Without ``mirror`` each tensor leaf is copied into memory of its own.
-    With one, every leaf on the mirror's device or the CPU is copied into
-    the mirror's leaf of the same place (on the card without blocking,
-    then one wait for all of them) and returned as a view of it; a leaf on
-    another device is copied as without one. The next call with the same
-    mirror overwrites those views: nothing that outlives the caller's use
-    of this batch may point into them."""
-    with tracing.span("fdc.to_host"):
-        if mirror is None:
-            return _host_copy(tree)
-        return mirror.copy(tree)
-
-
-def _put(dst: torch.Tensor, src: np.ndarray):
-    """``dst`` (rows of a complex64 staging slot) <- ``src``, converted as
-    ``np.asarray(src, np.complex64)`` converts: by torch's copy, which
-    splits a large copy over its intra-op threads, where torch can take
-    ``src`` as it is; else by numpy's assignment."""
-    if (src.dtype in (np.complex64, np.complex128)
-            and src.flags.c_contiguous and src.flags.writeable):
-        dst.copy_(torch.from_numpy(src))
-    else:
-        dst.numpy()[...] = src
-
-
-def _rest(pend: np.ndarray, x: np.ndarray, pos: int) -> np.ndarray:
-    """The stream's remainder, ``pend`` then ``x[pos:]``, as complex64 in
-    memory of its own (the caller may reuse ``x``)."""
-    rest = np.empty((len(pend) + len(x) - pos,) + x.shape[1:], np.complex64)
-    rest[:len(pend)] = pend
-    rest[len(pend):] = x[pos:]
-    return rest
-
-
-def _host_copy(tree):
-    if isinstance(tree, dict):
-        return {k: _host_copy(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_host_copy(v) for v in tree)
-    if isinstance(tree, np.ndarray):
-        return tree
-    t = tree.cpu()
-    tracing.count("d2h_bytes", t.nbytes)
-    return (t.clone() if t is tree else t).numpy()
-
-
-class HostMirror:
-    """A host copy of a step's output tree, kept across calls: a leaf for
-    each tensor leaf on ``device`` or the CPU, of its shape and dtype, all
-    views of one buffer (page-locked where ``device`` is CUDA, so that the
-    copies into it do not block the host). The buffer is made on the first
-    :meth:`copy` and again only when the leaves' shapes or dtypes change."""
-
-    _ALIGN = 256  # bytes between the starts of two leaves
-
-    def __init__(self, device: torch.device):
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        self.device = device
-        self.signature = None
-        self.buffer = None
-        self._leaves = []  # tensors over ``buffer``
-        self._arrays = []  # their numpy views
-        self._order = []  # the order their copies are queued in
-        self._nbytes = 0
-        self._done = torch.cuda.Event() if device.type == "cuda" else None
-
-    def _takes(self, t: torch.Tensor) -> bool:
-        return t.device == self.device or t.device.type == "cpu"
-
-    def _sources(self, tree, found: list):
-        if isinstance(tree, dict):
-            for v in tree.values():
-                self._sources(v, found)
-        elif isinstance(tree, (list, tuple)):
-            for v in tree:
-                self._sources(v, found)
-        elif isinstance(tree, torch.Tensor) and self._takes(tree):
-            found.append(tree)
-
-    def _fit(self, srcs: list):
-        sig = tuple((tuple(t.shape), t.dtype) for t in srcs)
-        if sig == self.signature:
-            return
-        offsets, end = [], 0
-        for t in srcs:
-            offsets.append(end)
-            end += -(-t.nbytes // self._ALIGN) * self._ALIGN
-        self.buffer = torch.empty(end, dtype=torch.uint8,
-                                  pin_memory=self.device.type == "cuda")
-        self._leaves = [
-            self.buffer[o:o + t.nbytes].view(t.dtype).view(t.shape)
-            for o, t in zip(offsets, srcs)]
-        self._arrays = [t.numpy() for t in self._leaves]
-        # the largest copies are queued first: the card copies them while
-        # the host queues the small ones
-        self._order = sorted(range(len(srcs)), key=lambda i: -srcs[i].nbytes)
-        self._nbytes = sum(t.nbytes for t in srcs)
-        self.signature = sig
-
-    def _views(self, tree, arrays):
-        if isinstance(tree, dict):
-            return {k: self._views(v, arrays) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(self._views(v, arrays) for v in tree)
-        if isinstance(tree, torch.Tensor):
-            return next(arrays) if self._takes(tree) else _host_copy(tree)
-        return tree
-
-    def copy(self, tree):
-        """``tree`` with its leaves copied into the mirror, as views of it;
-        returns once every copy has landed."""
-        srcs = []
-        self._sources(tree, srcs)
-        self._fit(srcs)
-        for i in self._order:
-            self._leaves[i].copy_(srcs[i], non_blocking=True)
-        if srcs:
-            if self._done is not None:
-                self._done.record(torch.cuda.current_stream(self.device))
-                self._done.synchronize()
-            tracing.count("d2h_bytes", self._nbytes)
-            tracing.count("d2h_mirrored_bytes", self._nbytes)
-        return self._views(tree, iter(self._arrays))
+def emit_segment(emitter, so, t0: int, i: int):
+    """Segment ``i``'s step outputs on the host (views of a host mirror)
+    into its emitter: the extraction pairs as complex, then the emitter's
+    events at block ``t0``."""
+    so["extract"] = _pairs_to_complex(so["extract"])
+    if "extract_narrow" in so:
+        so["extract_narrow"] = _pairs_to_complex(so["extract_narrow"])
+    with tracing.span("fdc.emit", i):
+        return emitter.process_step(so, so["slot_meta"], t0)
 
 
 class FrequencyDomainChannelizer(nn.Module):
@@ -296,15 +178,14 @@ class FrequencyDomainChannelizer(nn.Module):
     The streaming API runs the step compiled (``_jit_step``,
     ``_jit_step_spectra``, as ``fdc_tpu`` names its jitted steps): its
     outputs are overwritten by the next step, so ``_consume_outputs``
-    copies them to the host first, into one reused host mirror
-    (:class:`HostMirror`, page-locked on the card) whose views nothing
-    kept past the batch points into, and ``self._carry`` is the compiled
-    step's static carry. A subclass whose step cannot run so sets
-    ``compile_step = False`` and runs ``_device_step`` eagerly. Each batch
-    is written once, the buffered remainder first, into one reused
-    staging slot (page-locked on the card, so the step's copy-in does not
-    block the host); what is left of less than a batch is buffered as a
-    copy.
+    copies them to the host first, into the stream's host mirror
+    (``runtime.compiled.HostMirror``) whose views nothing kept past the
+    batch points into, and ``self._carry`` is the compiled step's static
+    carry. A subclass whose step cannot run so sets ``compile_step =
+    False`` and runs ``_device_step`` eagerly. Each batch is written
+    once, the buffered remainder first, into the stream's staging slot
+    (``runtime.compiled.StagingSlot``); what is left of less than a batch
+    is buffered as a copy.
     """
 
     compile_step = True
@@ -502,13 +383,11 @@ class FrequencyDomainChannelizer(nn.Module):
         self._pending_spec = np.zeros((0, cfg.blocksize), np.complex64)
         self._spectra_mode = False
         self._samples_mode = False
-        # the staging slot a batch is written into and copied in from
-        # (``_staging_slot``), and the event behind the step that read it
-        self._slot = None
-        self._slot_read = None
+        # the staging slot a batch is written into and copied in from, and
         # the host mirror the step's outputs are copied out into
-        # (``_consume``); reset() keeps it
-        self._mirror = HostMirror(self.device)
+        # (``_consume``); reset() keeps both
+        self._staging = StagingSlot(self.device)
+        self._mirror = HostMirror()
         self.to(self.device)
         # the compiled steps (JAX: jax.jit of the same functions) share
         # one graph memory pool; the init only allocates the carry, which
@@ -838,44 +717,24 @@ class FrequencyDomainChannelizer(nn.Module):
     def _run_step(self, compiled: CompiledStep, slot: torch.Tensor):
         """One batch, the staging slot of host samples or spectrum rows,
         through ``compiled`` at the stream's cursor (eagerly where the
-        class opts out); returns the step's outputs. On the card the
-        slot's event is recorded behind the step: the slot's next fill
-        waits for it."""
+        class opts out); returns the step's outputs. The slot's next fill
+        waits for this step's copy-in."""
         step = compiled if self._graphed() else compiled.eager
         with tracing.span("fdc.step"):
             self._carry, out = step(self._carry, slot, self._t0)
             if step is compiled:
                 tracing.count("h2d_staged_bytes", slot.nbytes)
-            if self._slot_read is not None:
-                self._slot_read.record(torch.cuda.current_stream(self.device))
+            self._staging.read()
         return out
-
-    def _staging_slot(self, shape) -> torch.Tensor:
-        """The stream's staging slot of ``shape``, complex64: page-locked
-        where the step's device is CUDA, so that the step's copy-in does
-        not block the host. Made on first use and when the shape changes;
-        returned once the step that last read it has copied it in (a wait
-        is counted as ``stage_waits``)."""
-        slot = self._slot
-        if slot is None or tuple(slot.shape) != shape:
-            cuda = self.device.type == "cuda"
-            slot = self._slot = torch.empty(shape, dtype=torch.complex64,
-                                            pin_memory=cuda)
-            self._slot_read = torch.cuda.Event() if cuda else None
-        elif self._slot_read is not None and not self._slot_read.query():
-            tracing.count("stage_waits", 1)
-            self._slot_read.synchronize()
-        return slot
 
     def _stage(self, pend: np.ndarray, x: np.ndarray, pos: int, rows: int):
         """The staging slot written with the stream's next ``rows`` rows
         (samples or spectrum rows): the buffered ``pend`` first, then ``x``
         from row ``pos``. Returns (slot, what is left of ``pend``, the
         next row of ``x``)."""
-        slot = self._staging_slot((rows,) + x.shape[1:])
         k = min(len(pend), rows)
-        _put(slot[:k], pend[:k])
-        _put(slot[k:], x[pos:pos + rows - k])
+        slot = self._staging.fill((rows,) + x.shape[1:], pend[:k],
+                                  x[pos:pos + rows - k])
         return slot, pend[k:], pos + rows - k
 
     def _run_batches(self, compiled: CompiledStep, pend: np.ndarray,
@@ -889,14 +748,15 @@ class FrequencyDomainChannelizer(nn.Module):
         dbg = []
         pos = 0
         for _ in range((len(pend) + len(x)) // rows):
-            with tracing.span("fdc.input_concat"):
+            with tracing.span("fdc.stage"):
                 slot, pend, pos = self._stage(pend, x, pos, rows)
             out = self._run_step(compiled, slot)
             self._consume_outputs(out, result, dbg)
             self._t0 += bb
             result.blocks_processed += bb
-        with tracing.span("fdc.input_concat"):
-            rest = _rest(pend, x, pos)
+        with tracing.span("fdc.stage"):  # in memory of its own
+            rest = np.concatenate([pend, x[pos:]]).astype(np.complex64,
+                                                          copy=False)
         if dbg:
             with tracing.span("fdc.result"):
                 result.debug_spectrum = np.concatenate(dbg)
@@ -1062,12 +922,8 @@ class FrequencyDomainChannelizer(nn.Module):
                 result.events.extend(self.power_emitter.process_step(po, t0))
         for i in range(len(self.segments)):
             so = out[f"seg{i}"]
-            so["extract"] = _pairs_to_complex(so["extract"])
-            if "extract_narrow" in so:
-                so["extract_narrow"] = _pairs_to_complex(so["extract_narrow"])
-            with tracing.span("fdc.emit", i):
-                result.events.extend(self.segment_emitters[i].process_step(
-                    so, so["slot_meta"], t0))
+            result.events.extend(
+                emit_segment(self.segment_emitters[i], so, t0, i))
             with tracing.span("fdc.assemble"):
                 result.segment_power[i] = np.concatenate(
                     [result.segment_power[i], so["power"]]

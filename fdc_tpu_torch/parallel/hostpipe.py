@@ -49,11 +49,11 @@ from queue import Queue
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 from fdc_tpu_torch.config import ChannelizerConfig
 from fdc_tpu_torch.convert import carry_from_numpy
 from fdc_tpu_torch.parallel.pipeline import PipelineChannelizer
+from fdc_tpu_torch.runtime.compiled import HostMirror, _to_host
 
 __all__ = ["HostPipelineOwner", "HostPipelineWorker"]
 
@@ -213,18 +213,6 @@ class _WorkerConn:
             pass
 
 
-def _to_numpy(tree):
-    """Tensor leaves -> numpy (int leaves, such as a worker's absent
-    debug spectrum, stay as they are)."""
-    if isinstance(tree, dict):
-        return {k: _to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_numpy(v) for v in tree)
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
-    return tree
-
-
 def _global_batch(fdc) -> int:
     """The stream's index of the next batch: host assignment follows the
     stream, not the chunking of the ``process`` calls."""
@@ -264,6 +252,8 @@ class HostPipelineOwner(PipelineChannelizer):
         self.port = self._lsock.getsockname()[1]
         self._conns: List[Optional[_WorkerConn]] = [None] * n_workers
         self._local_only = False
+        # the host mirror the slot tables and plans are shipped from
+        self._plans_mirror = HostMirror()
 
     def _ring_depths(self):
         # up to window * n_hosts batches in flight, about window of them
@@ -369,12 +359,10 @@ class HostPipelineOwner(PipelineChannelizer):
             segk_o = [carry_from_numpy(packs["seg_packed"], dev)]
         scans = self._scan_parts(pa_o, segk_o)
         with self._on(0):
-            states = [_to_numpy(st) for st, _ in scans["segs"]]
-            plans = [
-                {k: _to_numpy(so[k])
-                 for k in ("slot_ids", "slot_ids_narrow") if k in so}
-                for _, so in scans["segs"]
-            ]
+            states, plans = _to_host((
+                [st for st, _ in scans["segs"]],
+                [{k: so[k] for k in ("slot_ids", "slot_ids_narrow") if k in so}
+                 for _, so in scans["segs"]]), self._plans_mirror)
         conn.send("PLANS", b, {"states": states, "plans": plans})
         return scans, self._t0
 
@@ -444,6 +432,8 @@ class HostPipelineWorker(PipelineChannelizer):
         )
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         _send_msg(self._sock, "HELLO", self.host_id, self.config.to_json())
+        # the host mirrors the packs and the outputs are shipped from
+        self._packs_mirror, self._out_mirror = HostMirror(), HostMirror()
 
     def _ring_depths(self):
         # the ship window of 2: one batch unshipped when the next starts
@@ -482,8 +472,9 @@ class HostPipelineWorker(PipelineChannelizer):
             (out_static, pa_powers, pa_ext, seg_powers, seg_packed,
              spec_ext, dbgb) = self._front(lane, slot, host_in, self._t0)
             with self._on(lane):
-                packs = {"pa_powers": _to_numpy(pa_powers),
-                         "seg_packed": _to_numpy(list(seg_packed))}
+                packs = _to_host({"pa_powers": pa_powers,
+                                  "seg_packed": list(seg_packed)},
+                                 self._packs_mirror)
             _send_msg(self._sock, "PACKS", b, packs)
             kind, pb, plans_msg = _recv_msg(self._sock)
             if kind != "PLANS" or pb != b:
@@ -511,13 +502,13 @@ class HostPipelineWorker(PipelineChannelizer):
     def _ship_out(self, entry):
         b, lane, out_static, pa_ext, seg_powers, dbgb, extracts = entry
         with self._on(lane):
-            payload = _to_numpy({
+            payload = _to_host({
                 "out_static": out_static,
                 "pa_ext": pa_ext,
                 "seg_powers": seg_powers,
                 "dbg": dbgb if self.config.debug else 0,
                 "extracts": extracts,
-            })
+            }, self._out_mirror)
         _send_msg(self._sock, "OUT", b, payload)
 
     def flush(self, finalize: bool = True):

@@ -71,7 +71,6 @@ from fdc_tpu_torch.config import ChannelizerConfig
 from fdc_tpu_torch.models.channelizer import (
     FrequencyDomainChannelizer,
     _pairs_to_complex,
-    _to_host,
 )
 from fdc_tpu_torch.ops.fft import forward_spectrum
 from fdc_tpu_torch.ops.framing import frame_blocks
@@ -83,6 +82,8 @@ from fdc_tpu_torch.parallel.lanes import (
 )
 from fdc_tpu_torch.runtime.compiled import (
     GraphPool,
+    HostMirror,
+    _to_host,
     compiled_ring,
     install_carry,
 )
@@ -181,6 +182,8 @@ class PipelineChannelizer(Lanes, FrequencyDomainChannelizer):
         # vector mode: the previous batch's last spectrum row (float
         # pairs), prepended to the next batch
         self._prev_specf = np.zeros((cfg.blocksize, 2), np.float32)
+        # the host mirror a group batch's lane outputs are joined from
+        self._join_mirror = HostMirror()
         self._build_stages()
 
     def reset(self):
@@ -406,23 +409,26 @@ class PipelineChannelizer(Lanes, FrequencyDomainChannelizer):
         """A group batch's per-lane stage outputs joined on the host into
         the plain step's layout: streams and powers concatenated over the
         runs, row families with the runs' duplicated reach-back rows
-        dropped (JAX: parallel/pipeline.py:437-446,700-720)."""
+        dropped (JAX: parallel/pipeline.py:437-446,700-720). The lanes'
+        outputs are copied out once, into the join's mirror; the joins
+        copy them out of it."""
         outs, pa_exts, seg_powers, dbgs, scans, extracts, t0_b, done = parts
+        outs, pa_exts, seg_powers, dbgs, extracts = _to_host(
+            (outs, pa_exts, seg_powers, dbgs, extracts), self._join_mirror)
         out = {}
         if self.throughput:
             out["throughput_buckets"] = [
-                np.concatenate([_to_host(o["throughput_buckets"][k])
-                                for o in outs], axis=1)
+                np.concatenate([o["throughput_buckets"][k] for o in outs],
+                               axis=1)
                 for k in range(len(self.throughput.buckets))]
         pa_ext = None
         if self.power_bank:
-            pa_ext = {w: merge_rows([_to_host(p[w]) for p in pa_exts])
+            pa_ext = {w: merge_rows([p[w] for p in pa_exts])
                       for w in pa_exts[0]}
-        seg_p = [np.concatenate([_to_host(p[i]) for p in seg_powers])
+        seg_p = [np.concatenate([p[i] for p in seg_powers])
                  for i in range(len(self.segments))]
-        dbg = (np.concatenate([_to_host(d) for d in dbgs])
-               if self.config.debug else None)
-        ext = [{k: merge_rows([_to_host(e[i][k]) for e in extracts])
+        dbg = np.concatenate(dbgs) if self.config.debug else None
+        ext = [{k: merge_rows([e[i][k] for e in extracts])
                 for k in extracts[0][i]} for i in range(len(self.segments))]
         return out, pa_ext, seg_p, dbg, scans, ext, t0_b, done
 

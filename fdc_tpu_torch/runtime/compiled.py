@@ -10,10 +10,8 @@ with one buffer discipline on both devices:
 - **Static inputs.** One set of input buffers per input shape, and
   ``t0`` as a 0-d int32 tensor: each call copies its inputs in and
   writes ``t0``. A Python ``int`` would be baked into the graph at
-  capture. On the card a page-locked host input is copied without
-  blocking the host, queued on the stream the graph replays on; the
-  caller keeps it unchanged until the copy is done. Any other input is
-  copied as ``copy_`` copies it.
+  capture. A page-locked host input is copied without blocking (below);
+  any other input as ``copy_`` copies it.
 - **Static carry.** The carry leaves are ordinary allocations outside
   the graph pool. The step's new carry is copied back into them at the
   end of the captured region; the call returns them, and the caller
@@ -28,6 +26,19 @@ with one buffer discipline on both devices:
   slot, each with a graph pool of its own, all sharing one static carry
   (:class:`StaticCarry`). Slot k's outputs stay valid until slot k runs
   again.
+
+Host memory meets a step in one way, on both ends, for every caller:
+
+- **Host input.** A caller writes each call's input into its
+  :class:`StagingSlot`, kept across calls and page-locked on the card, so
+  that the step's copy-in is queued without blocking the host, on the
+  stream the graph replays on; an event recorded behind the step holds
+  the slot's next fill until the copy is done.
+- **Host output.** A caller copies the outputs it reads with
+  :func:`_to_host` into its :class:`HostMirror`, one host buffer kept
+  across calls (page-locked where a leaf is on the card): every copy
+  queued without blocking, then one event a device waited for. The
+  arrays it returns are views of the mirror, valid until its next copy.
 
 Inputs are tensors or nested lists / tuples / dicts of them (other
 leaves, such as None or an int, are part of the shape's key); an input
@@ -69,7 +80,9 @@ input's copy is only queued there), a new shape's
 capture ``fdc.capture`` (on the CPU its first, guarded run; counter
 ``graph_captures``), the replay ``fdc.replay`` (on the CPU the eager
 run), and a synchronisation of the step's stream after it
-``fdc.device_wait``, which only tracing adds.
+``fdc.device_wait``, which only tracing adds. A fill of a staging slot
+that waits for its last copy-in counts ``stage_waits``; a copy into a
+host mirror is span ``fdc.to_host`` (counter ``d2h_bytes``).
 """
 
 from __future__ import annotations
@@ -82,6 +95,7 @@ import sys
 import weakref
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -91,6 +105,8 @@ __all__ = [
     "CaptureError",
     "CompiledStep",
     "GraphPool",
+    "HostMirror",
+    "StagingSlot",
     "StaticCarry",
     "compiled_ring",
     "drive",
@@ -588,3 +604,120 @@ def install_carry(steps, current, carry):
         if step.owns(current):
             return step.adopt(carry)
     return carry
+
+
+# -- host memory that meets a step ---------------------------------------------
+
+class StagingSlot:
+    """A step's host input, written in place each call and kept across
+    calls: complex64, page-locked where the step's ``device`` is CUDA, so
+    that the step's copy-in does not block the host. Made on the first
+    :meth:`fill` and again when the shape changes."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.tensor = None
+        self._read = None  # the event behind the step that last read it
+
+    def fill(self, shape, *parts) -> torch.Tensor:
+        """The slot of ``shape`` written with the arrays ``parts`` one
+        after another along its first axis, each converted as
+        ``np.asarray(part, np.complex64)`` converts; returned once the step
+        that last read it has copied it in (a wait is counted as
+        ``stage_waits``)."""
+        slot = self.tensor
+        if slot is None or tuple(slot.shape) != tuple(shape):
+            cuda = self.device.type == "cuda"
+            slot = self.tensor = torch.empty(shape, dtype=torch.complex64,
+                                             pin_memory=cuda)
+            self._read = torch.cuda.Event() if cuda else None
+        elif self._read is not None and not self._read.query():
+            tracing.count("stage_waits", 1)
+            self._read.synchronize()
+        row = 0
+        for part in parts:
+            dst = slot[row:row + len(part)]
+            row += len(part)
+            # torch's copy splits a large copy over its intra-op threads:
+            # taken where torch can take the part as it is
+            if (part.dtype in (np.complex64, np.complex128)
+                    and part.flags.c_contiguous and part.flags.writeable):
+                dst.copy_(torch.from_numpy(part))
+            else:
+                dst.numpy()[...] = part
+        return slot
+
+    def read(self):
+        """The step that copies the slot in is queued on the device's
+        current stream: the slot's next fill waits for it."""
+        if self._read is not None:
+            self._read.record(torch.cuda.current_stream(self.device))
+
+
+class HostMirror:
+    """A host copy of a step's output tree, kept across calls: a leaf for
+    each tensor leaf, whatever its device, of its shape and dtype, all
+    views of one buffer (page-locked where a leaf is on the card, so that
+    the copies into it do not block the host). The buffer is made on the
+    first :meth:`copy` and again only when the leaves' shapes, dtypes or
+    devices change."""
+
+    _ALIGN = 256  # bytes between the starts of two leaves
+
+    def __init__(self):
+        self.signature = None
+        self.buffer = None
+        self._leaves = []  # tensors over ``buffer``
+        self._arrays = []  # their numpy views
+        self._done = {}  # CUDA device copied from -> the event behind it
+        self._nbytes = 0
+
+    def _fit(self, srcs: list):
+        sig = tuple((tuple(t.shape), t.dtype, t.device) for t in srcs)
+        if sig == self.signature:
+            return
+        offsets, end = [], 0
+        for t in srcs:
+            offsets.append(end)
+            end += -(-t.nbytes // self._ALIGN) * self._ALIGN
+        self._done = {t.device: torch.cuda.Event() for t in srcs
+                      if t.device.type == "cuda"}
+        self.buffer = torch.empty(end, dtype=torch.uint8,
+                                  pin_memory=bool(self._done))
+        self._leaves = [
+            self.buffer[o:o + t.nbytes].view(t.dtype).view(t.shape)
+            for o, t in zip(offsets, srcs)]
+        self._arrays = [t.numpy() for t in self._leaves]
+        self._nbytes = sum(t.nbytes for t in srcs)
+        self.signature = sig
+
+    def copy(self, tree):
+        """``tree`` with its tensor leaves copied into the mirror, in the
+        tree's order, as numpy views of it (other leaves as they are);
+        returns once every copy has landed: an event recorded on each
+        source device's current stream, which the copies were queued on,
+        then each waited for. A tree without tensor leaves leaves the
+        mirror as it is."""
+        srcs = list(_leaves(tree))
+        if srcs:
+            self._fit(srcs)
+            for dst, src in zip(self._leaves, srcs):
+                dst.copy_(src, non_blocking=True)
+            for dev, done in self._done.items():
+                done.record(torch.cuda.current_stream(dev))
+            for done in self._done.values():
+                done.synchronize()
+            tracing.count("d2h_bytes", self._nbytes)
+        arrays = iter(self._arrays)
+        return _map(lambda _: next(arrays), tree)
+
+
+def _to_host(tree, mirror: HostMirror):
+    """Nested dicts, lists and tuples of tensors -> the same tree of numpy
+    arrays, copied through ``mirror`` (a compiled step's next call
+    overwrites its output tensors, on the CPU too); numpy leaves, as a
+    host pipeline's worker ships them, pass as they are. The next copy
+    through the same mirror overwrites the arrays: nothing that outlives
+    the caller's use of this batch may point into them."""
+    with tracing.span("fdc.to_host"):
+        return mirror.copy(tree)

@@ -2,13 +2,12 @@
 
 ``process()`` / ``process_spectra()`` of the channelizer, the compiled
 step and the kernel library open named spans at each layer boundary
-(``fdc.process``, ``fdc.input_concat``, ``fdc.step``, ``fdc.copy_in``,
+(``fdc.process``, ``fdc.stage``, ``fdc.step``, ``fdc.copy_in``,
 ``fdc.capture``, ``fdc.replay``, ``fdc.device_wait``, ``fdc.consume``,
 ``fdc.to_host``, ``fdc.pairs_to_complex``, ``fdc.emit``,
 ``fdc.assemble``, ``fdc.result``, ``fdc.kernel_build``) and count what
 they move and wait for (``h2d_bytes``, ``h2d_staged_bytes``,
-``stage_waits``, ``d2h_bytes``, ``d2h_mirrored_bytes``,
-``graph_captures``)::
+``stage_waits``, ``d2h_bytes``, ``graph_captures``)::
 
     from fdc_tpu_torch.runtime import tracing
 

@@ -1,18 +1,19 @@
-"""The channelizer's copy-out of the step's outputs (``_consume``) on the
+"""The copy-out of a step's outputs (``runtime.compiled._to_host``) on the
 CPU.
 
 Every output of a batch is copied into one host mirror of the step's
 output tree, kept across calls (``HostMirror``: page-locked on the card,
 the copies queued without blocking and waited for once), and read from
-there; what outlives the batch is copied out of it. Here: results held
-by the caller stay as they were returned through later calls; outputs,
-debug spectra and events equal those of a copy-out into fresh memory,
-bit for bit, with the Python and the native emitters; one buffer serves
-every call and is made again only for a new tree; every byte copied out
-on a ``process()`` / ``process_spectra()`` stream lands in the mirror
-(counter ``d2h_mirrored_bytes``), none through ``_to_host`` without one.
-Tests marked ``cuda`` (no JAX) hold the page-locked mirror and its wait
-on the card.
+there; what outlives the batch is copied out of it. The channelizer's
+``_consume``, the pipeline's join of a lane group and the vcm runner
+each copy out through a mirror of their own. Here: results held by the
+caller stay as they were returned through later calls; outputs, debug
+spectra and events equal those of a copy-out into fresh memory
+(:func:`fresh`), bit for bit, with the Python and the native emitters;
+one buffer serves every call and is made again only for a new tree;
+``d2h_bytes`` counts the mirror's bytes once a step. Tests marked
+``cuda`` (no JAX) hold the page-locked mirror, its wait and the vcm
+runner's slot and mirror on the card.
 """
 
 import copy
@@ -21,12 +22,15 @@ import numpy as np
 import pytest
 import torch
 
+import fdc_tpu_torch.models.activity_detection as admod
 import fdc_tpu_torch.models.channelizer as chmod
+import fdc_tpu_torch.parallel.pipeline as pipemod
+from fdc_tpu_torch import ActivityDetectionChannelizer
 from fdc_tpu_torch import FrequencyDomainChannelizer
 from fdc_tpu_torch.flagship import _flagship
-from fdc_tpu_torch.models.channelizer import HostMirror, _to_host
 from fdc_tpu_torch.parallel import PipelineChannelizer
 from fdc_tpu_torch.runtime import native, tracing
+from fdc_tpu_torch.runtime.compiled import HostMirror, _to_host
 
 from test_torch_staging import assert_bit_equal, host, leaves
 from test_torch_tracing import SMALL, capture, meta, spectra_of
@@ -65,11 +69,18 @@ def bounds_of(rows, n_batches=N_BATCHES):
     return [c for c in cuts if c <= n_batches * rows]
 
 
-def fresh_copy_out(monkeypatch):
-    """``_consume`` fed fresh copies, as before the mirror."""
-    to_host = chmod._to_host
-    monkeypatch.setattr(chmod, "_to_host",
-                        lambda tree, mirror=None: to_host(tree))
+def fresh(tree):
+    """The reference copy-out: each tensor leaf into memory of its own."""
+    if isinstance(tree, dict):
+        return {k: fresh(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(fresh(v) for v in tree)
+    return tree.cpu().clone().numpy() if torch.is_tensor(tree) else tree
+
+
+def fresh_copy_out(monkeypatch, module=chmod):
+    """``module``'s copy-out (default: ``_consume``'s) made fresh copies."""
+    monkeypatch.setattr(module, "_to_host", lambda tree, mirror: fresh(tree))
 
 
 def feed(fdc, entry, x, bounds):
@@ -153,7 +164,7 @@ def test_one_mirror_reused_and_remade_on_a_new_tree():
 def test_mirror_handles_every_leaf_kind():
     """Lists, tuples, 0-d, empty and bool tensors take their places in the
     mirror; numpy leaves and other objects pass as they are."""
-    mirror = HostMirror(torch.device("cpu"))
+    mirror = HostMirror()
     kept = np.arange(4)
     tree = {"a": [torch.arange(5, dtype=torch.int32), (torch.tensor(2.5),)],
             "b": {"flag": torch.tensor([True, False]),
@@ -169,8 +180,8 @@ def test_mirror_handles_every_leaf_kind():
 
 @pytest.mark.parametrize("entry", ["process", "process_spectra"])
 def test_every_byte_copied_out_is_mirrored(entry):
-    """Per call, ``d2h_mirrored_bytes`` equals ``d2h_bytes``, the whole
-    output tree for each step the call ran."""
+    """Per call, ``d2h_bytes`` is the mirror's bytes, the whole output
+    tree, once for each step the call ran."""
     fdc = channelizer()
     x, rows = stream_of(fdc, entry)
     call = getattr(fdc, entry)
@@ -179,43 +190,55 @@ def test_every_byte_copied_out_is_mirrored(entry):
     results = [call(x[a:b]) for a, b in zip(bounds, bounds[1:])]
     tracing.disable()
     per_step = fdc._mirror._nbytes
-    for call, r in enumerate(results):
+    steps = [-(-r.blocks_processed // fdc.config.batch_blocks)
+             for r in results]
+    for call, n in enumerate(steps):
         c = tracing.summary(calls=[call])["counters"]
-        steps = -(-r.blocks_processed // fdc.config.batch_blocks)
-        assert c.get("d2h_mirrored_bytes", 0) == c.get("d2h_bytes", 0)
-        assert c.get("d2h_bytes", 0) == steps * per_step
-    total = tracing.summary()["counters"]
-    assert total["d2h_mirrored_bytes"] / total["d2h_bytes"] == 1.0
+        assert c.get("d2h_bytes", 0) == n * per_step
+    assert tracing.summary()["counters"]["d2h_bytes"] == sum(
+        steps) * per_step
 
 
-def test_without_a_mirror_every_copy_is_fresh():
-    """``_to_host(tree)``, as the pipeline's merges call it: bytes copied,
-    none into a mirror, and two calls' arrays share no memory."""
-    fdc = channelizer()
-    x, rows = stream_of(fdc, "process")
-    fdc.process(x[:rows])
-    out = fdc._jit_step._entries[next(iter(fdc._jit_step._entries))].out
-    tracing.enable()
-    one, two = _to_host(out), _to_host(out)
-    c = tracing.summary()["counters"]
-    assert c["d2h_bytes"] == 2 * fdc._mirror._nbytes
-    assert "d2h_mirrored_bytes" not in c
-    for a, b in zip(leaves(one), leaves(two)):
-        assert not np.shares_memory(a, b)
+def test_pipeline_join_goes_through_its_mirror(monkeypatch):
+    """A pipeline whose workers are groups of two lanes copies each
+    batch's lane outputs out once, into the join's mirror (one buffer for
+    every batch), and joins from there: results bit-equal to those of a
+    join from fresh copies, events those of the plain step and streams
+    within the pipeline's tolerance of it (rtol 2e-4 of the max)."""
+    cfg = _flagship(**SMALL)
+    x, rows = stream_of(channelizer(), "process", 3)
+    joins = []
+    to_host = pipemod._to_host
 
+    def seen(tree, mirror):
+        back = to_host(tree, mirror)
+        joins.append((mirror, mirror.buffer, [
+            a for a in leaves(back) if isinstance(a, np.ndarray)]))
+        return back
 
-def test_pipeline_merges_copy_fresh():
-    """A pipeline whose workers are groups of two lanes joins their
-    outputs through ``_to_host`` without a mirror: those bytes are not
-    mirrored; what ``_consume`` then copies of the lanes' tensors is."""
-    pipe = PipelineChannelizer(_flagship(**SMALL), devices=["cpu"] * 3,
-                               shard_time=2)
-    x, rows = stream_of(pipe, "process", 3)
-    tracing.enable()
-    pipe.process(x)
-    pipe.flush()
-    c = tracing.summary()["counters"]
-    assert 0 < c["d2h_mirrored_bytes"] < c["d2h_bytes"]
+    monkeypatch.setattr(pipemod, "_to_host", seen)
+    pipe = PipelineChannelizer(cfg, devices=["cpu"] * 3, shard_time=2)
+    got = [pipe.process(x), pipe.flush()]
+    assert len(joins) == pipe._uses["scan"] >= 3  # one a batch
+    assert all(m is pipe._join_mirror and b is joins[0][1]
+               for m, b, _ in joins)
+    whole = joins[0][1].numpy()
+    assert joins[0][2]
+    assert all(np.shares_memory(a, whole) for _, _, back in joins
+               for a in back)
+    fresh_copy_out(monkeypatch, pipemod)
+    ref = PipelineChannelizer(cfg, devices=["cpu"] * 3, shard_time=2)
+    want = [ref.process(x), ref.flush()]
+    assert ref._join_mirror.buffer is None
+    for a, b in zip(got, want):
+        assert_same_result(a, b)
+    plain = channelizer()
+    for a, b in zip(got, [plain.process(x), plain.flush()]):
+        assert [meta(e) for e in a.events] == [meta(e) for e in b.events]
+        for u, v in zip(a.throughput + [e.data for e in a.events],
+                        b.throughput + [e.data for e in b.events]):
+            np.testing.assert_allclose(
+                u, v, rtol=0, atol=2e-4 * np.abs(v).max(initial=1e-30))
 
 
 # -- on the card -----------------------------------------------------------------
@@ -236,7 +259,7 @@ def test_the_mirror_is_page_locked_on_the_card():
     fdc.process(x[:rows])
     c = tracing.summary()["counters"]
     assert fdc._mirror.buffer.is_pinned()
-    assert c["d2h_mirrored_bytes"] == c["d2h_bytes"] == fdc._mirror._nbytes
+    assert c["d2h_bytes"] == fdc._mirror._nbytes
 
 
 @pytest.mark.cuda
@@ -254,16 +277,6 @@ def test_three_calls_equal_a_fresh_copy_out_on_the_card(monkeypatch, entry):
         assert_same_result(a, b)
 
 
-class _NoWait:
-    """An event that neither records nor waits."""
-
-    def record(self, stream=None):
-        pass
-
-    def synchronize(self):
-        pass
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("wait", [True, False])
 def test_the_copy_out_waits_for_its_copies(wait):
@@ -276,7 +289,7 @@ def test_the_copy_out_waits_for_its_copies(wait):
     fdc.process(x[:rows])  # captures the graph, makes the mirror
     mirror = fdc._mirror
     if not wait:
-        mirror._done = _NoWait()
+        mirror._done = {}  # no event recorded, none waited for
     mirror.buffer.fill_(0xFF)
     slot, _, _ = fdc._stage(np.zeros(0, np.complex64), x, rows, rows)
     torch.cuda._sleep(1 << 28)
@@ -287,3 +300,40 @@ def test_the_copy_out_waits_for_its_copies(wait):
     want = list(leaves(host(out)))
     same = all(np.array_equal(a, b) for a, b in zip(got, want))
     assert same == wait
+
+
+def vcm_runner(device, batch=8):
+    """The vcm runner on two detection segments, and spectra of noise with
+    a carrier in each segment for a few batches of ``batch`` blocks."""
+    adc = ActivityDetectionChannelizer(
+        512, [[0.05, 0.45], [0.55, 0.95]], 8.0, 4, 0.02,
+        window_flank_puffer=0.2, max_slots=8, device=device)
+    rng = np.random.default_rng(5)
+    spectra = 0.05 * (rng.standard_normal((4 * batch, 512))
+                      + 1j * rng.standard_normal((4 * batch, 512)))
+    spectra[batch // 2:2 * batch, 120:130] += 30.0
+    spectra[batch:3 * batch, 380:392] += 20.0
+    return adc.make_runner(maxblocks=5), spectra.astype(np.complex64)
+
+
+@pytest.mark.cuda
+def test_the_vcm_runners_slot_and_mirror_are_page_locked(monkeypatch):
+    """On the card the vcm runner's staging slot and host mirror are
+    page-locked, the slot reused, and its events those of a runner whose
+    copy-out makes fresh copies, bit for bit."""
+    dev = cuda_device()
+    runner, spectra = vcm_runner(dev)
+    got, slots = [], []
+    for lo in range(0, len(spectra), 8):
+        got += runner.process_spectra(spectra[lo:lo + 8])
+        slots.append(runner._staging.tensor)
+    assert all(s is slots[0] for s in slots) and slots[0].is_pinned()
+    assert runner._mirror.buffer.is_pinned()
+    fresh_copy_out(monkeypatch, admod)
+    ref, _ = vcm_runner(dev)
+    want = []
+    for lo in range(0, len(spectra), 8):
+        want += ref.process_spectra(spectra[lo:lo + 8])
+    assert got and [meta(e) for e in got] == [meta(e) for e in want]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.data, b.data)

@@ -28,7 +28,8 @@ from fdc_tpu.runtime import emission as jax_emission
 from fdc_tpu_torch import ActivityDetectionChannelizer
 from fdc_tpu_torch import FrequencyDomainChannelizer
 from fdc_tpu_torch.flagship import _flagship
-from fdc_tpu_torch.models.channelizer import _pairs_to_complex, _to_host
+from fdc_tpu_torch.models.channelizer import _pairs_to_complex
+from fdc_tpu_torch.runtime.compiled import HostMirror, _to_host
 from fdc_tpu_torch.runtime import emission
 
 from test_torch_slice import capture, meta
@@ -40,10 +41,11 @@ SMALL = dict(blocksize=1024, batch_blocks=8, n_channels=16,
 
 
 def host_step(out, keys):
-    """Step outputs as the emitters get them: numpy, complex extractions."""
+    """Step outputs as the emitters get them: numpy, complex extractions
+    (each through a mirror of its own, so that every step's stay)."""
     host = {}
     for k in keys:
-        o = _to_host(out[k])
+        o = _to_host(out[k], HostMirror())
         if isinstance(o["extract"], dict):
             o["extract"] = {w: _pairs_to_complex(v)
                             for w, v in o["extract"].items()}

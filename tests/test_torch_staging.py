@@ -143,7 +143,7 @@ def test_whole_batches_buffer_nothing_and_reuse_one_slot(entry):
         getattr(fdc, entry)(x[k * rows:(k + 1) * rows])
         pend = fdc._pending if entry == "process" else fdc._pending_spec
         assert len(pend) == 0
-        slots.append(fdc._slot)
+        slots.append(fdc._staging.tensor)
     assert all(s is slots[0] for s in slots)
     assert tuple(slots[0].shape) == (rows,) + x.shape[1:]
     assert not slots[0].is_pinned()  # plain host memory without a card
@@ -262,7 +262,7 @@ def test_the_pipeline_path_stages_nothing():
     c = tracing.summary()["counters"]
     assert c["h2d_bytes"] > 0
     assert c.get("h2d_staged_bytes", 0) == 0
-    assert pipe._slot is None
+    assert pipe._staging.tensor is None
 
 
 # -- on the card -----------------------------------------------------------------
@@ -282,8 +282,9 @@ def test_the_slot_is_page_locked_on_the_card():
     tracing.enable()
     fdc.process(x[:fdc.batch_samples])
     c = tracing.summary()["counters"]
-    assert fdc._slot.is_pinned()
-    assert c["h2d_staged_bytes"] == c["h2d_bytes"] == fdc._slot.nbytes
+    slot = fdc._staging.tensor
+    assert slot.is_pinned()
+    assert c["h2d_staged_bytes"] == c["h2d_bytes"] == slot.nbytes
 
 
 @pytest.mark.cuda

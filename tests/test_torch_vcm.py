@@ -25,6 +25,7 @@ from fdc_tpu.models.activity_detection import (
 from fdc_tpu.models.channelizer import FrequencyDomainChannelizer as JaxFDC
 from fdc_tpu.ops.detect import detect_edges as jax_detect_edges
 from fdc_tpu.utils.cplx import c2f_host
+import fdc_tpu_torch.models.activity_detection as admod
 from fdc_tpu_torch import ActivityDetectionChannelizer
 from fdc_tpu_torch import FrequencyDomainChannelizer
 from fdc_tpu_torch.convert import carry_from_numpy, carry_to_numpy
@@ -38,6 +39,7 @@ from golden import (
     golden_forward_fft,
     golden_overlap_save,
 )
+from test_torch_copyout import fresh_copy_out
 from test_torch_slice import (
     assert_close_to_max,
     assert_events_match,
@@ -134,6 +136,12 @@ def test_vcm_matches_golden():
     events = []
     for lo in range(0, nb, 8):
         events += tr.process_spectra(spectra[lo:lo + 8])
+    assert_matches_golden(events, spectra, kw, maxblocks)
+
+
+def assert_matches_golden(events, spectra, kw, maxblocks):
+    """``events`` against the golden replay of ``spectra``: per segment,
+    metadata exact and samples to 3e-4."""
     ref = golden_activity_detection_vcm(
         spectra.astype(np.complex128), kw["blocklen"], kw["relinvovl"],
         kw["segments"], kw["thresh_db"], kw["minchandist"],
@@ -157,6 +165,48 @@ def test_vcm_matches_golden():
             np.testing.assert_allclose(ev.rel_bw, g["rel_bw"])
             assert ev.data.shape == g["data"].shape
             np.testing.assert_allclose(ev.data, g["data"], atol=3e-4)
+
+
+def run_in_calls(runner, spectra, batch):
+    """``spectra`` through ``runner`` in calls of ``batch`` blocks: the
+    events, and after each call the runner's staging slot and mirror
+    buffer."""
+    events, held = [], []
+    for lo in range(0, len(spectra), batch):
+        events += runner.process_spectra(spectra[lo:lo + batch])
+        held.append((runner._staging.tensor, runner._mirror.buffer))
+    return events, held
+
+
+@pytest.mark.parametrize("batch", [3, 7, 16])
+def test_vcm_runner_stages_and_mirrors(monkeypatch, batch):
+    """The golden scene in calls of ``batch`` blocks (the last one
+    shorter): each call's spectra written into one staging slot and its
+    outputs copied out through one mirror, both reused while the call's
+    shape stays and made anew when it changes; the events bit-equal to
+    those of a runner whose copy-out makes fresh copies, and the golden
+    replay's (test_vcm_matches_golden's checks)."""
+    kw, maxblocks, (nb, carriers) = SCENES["golden"]
+    spectra = make_spectra(nb, kw["blocklen"], kw["relinvovl"], carriers)
+
+    def runner():
+        return ActivityDetectionChannelizer(**kw, device="cpu").make_runner(
+            maxblocks=maxblocks)
+
+    got, held = run_in_calls(runner(), spectra, batch)
+    sizes = [len(spectra[lo:lo + batch]) for lo in range(0, nb, batch)]
+    assert len(set(sizes)) == 2  # the last call is shorter
+    for k in range(1, len(held)):
+        same = sizes[k] == sizes[k - 1]
+        assert (held[k][0] is held[k - 1][0]) == same
+        assert (held[k][1] is held[k - 1][1]) == same
+    assert tuple(held[0][0].shape) == (batch, kw["blocklen"])
+    fresh_copy_out(monkeypatch, admod)
+    want, _ = run_in_calls(runner(), spectra, batch)
+    assert got and [meta(e) for e in got] == [meta(e) for e in want]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.data, b.data)
+    assert_matches_golden(got, spectra, kw, maxblocks)
 
 
 def test_zero_floor_edges_match_jax():
